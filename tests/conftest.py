@@ -15,6 +15,8 @@ from repro.models import transformer as tf
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips on a host without CUDA")
 
 
 # ---------------------------------------------------------------------------
