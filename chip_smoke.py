@@ -19,9 +19,22 @@ non-zero:
 5. engine  — the LS+BE paged engine with use_flash: LS qwen3-1.7b, BE
              stablelm-1.6b, 8 slots each, chunk 256, ResourcePlan(sm_be=0.3).
 6. dense   — an LS-only dense-cache engine with use_flash.
+7. SGDRC kernels — the kernel layer's co-execution and shadow-page-table
+             entry points (``repro_torch.kernels.ops``) at full width:
+             flash_attention at qwen3-1.7b heads (causal, bf16 and f32;
+             non-causal f32) and gemma2-9b heads (S 8192, window 4096,
+             softcap 50); dual_tenant_attention (LS B 1 + BE B 4, qwen3
+             heads, S 2048), equal bit for bit to flash_attention for
+             sm_be 0.1/0.3/0.9; dual_tenant_matmul at qwen3-1.7b's gate
+             projection (LS 256 x 2048 @ 2048 x 6144, BE 2048 x 2048 @ the
+             same); spt_scatter/spt_gather of a 1 GiB LS and a 512 MiB BE
+             bf16 tensor through the SPTs of a 2 GiB ColoredArena. Each
+             against its plain version, and timed beside it, its bound and
+             one PyTorch library call.
 
-Launch counts of phases 5 and 6 are read with the counters set to 0 just
-before each phase. The next-to-last line is one JSON object with every
+Launch counts of phases 5, 6 and 7 are read with the counters set to 0 just
+before each phase drives its path (phase 7 counts its drive, before its
+checks and timings). The next-to-last line is one JSON object with every
 kernel's launches and times; the last line is the device JSON.
 """
 from __future__ import annotations
@@ -46,6 +59,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # layers and the final norm; 5e-2 relative L2 bounds that drift while still
 # failing on a wrong kernel (which gives O(1) relative error).
 MODEL_REL_TOL = 5e-2
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:181"),
@@ -55,7 +69,24 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:131"),
     "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
                           "src/repro/kernels/prefill_attention.py:148"),
+    "flash_attention": (CSRC + "flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
+    "dual_tenant_attention": (
+        CSRC + "dual_tenant_attention.cu",
+        "src/repro/kernels/dual_tenant_attention.py:136"),
+    "dual_tenant_matmul": (CSRC + "dual_tenant_matmul.cu",
+                           "src/repro/kernels/dual_tenant_matmul.py:121"),
+    "spt_gather": (CSRC + "spt_gather.cu",
+                   "src/repro/kernels/spt_gather.py:27"),
+    "spt_scatter": (CSRC + "spt_gather.cu",
+                    "src/repro/kernels/spt_gather.py:49"),
 }
+# dual_tenant_matmul (rtol, atol). f32: the reference's. bf16: the kernel
+# and the plain version each round an f32 sum (within f32 noise of each
+# other) to bf16 once, so they land on the same or a neighbouring bf16
+# value: one output rounding, at most 2^-7 of the value apart.
+MATMUL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -7, 1e-4)}
+SPT_ARENA_BYTES = 2 << 30
 HEADS = {"qwen3-1.7b": (16, 8, 128), "stablelm-1.6b": (32, 32, 64)}
 
 
@@ -550,13 +581,306 @@ def dense_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the SGDRC kernels (co-execution and shadow page tables)
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(S, causal, window):
+    """(query, key) pairs one (batch row, head) of self-attention sees."""
+    total = 0
+    for s in range(S):
+        hi = s + 1 if causal else S
+        lo = max(0, s - window + 1) if window else 0
+        total += hi - lo
+    return total
+
+
+def _bound(nbytes, flops, dname):
+    """(ms, what bounds it): the larger of ``nbytes`` over the HBM rate and
+    ``flops`` over the type's peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _attn_work(B, S, H, Hkv, D, itemsize, causal, window):
+    """(bytes of q, k, v and out once; 4 * D flops per visible (query, key)
+    pair and head) of one self-attention."""
+    nbytes = B * S * (2 * H + 2 * Hkv) * D * itemsize
+    return nbytes, 4.0 * D * _visible_pairs(S, causal, window) * B * H
+
+
+def _sdpa(torch, q, k, v, causal, window):
+    """One PyTorch library call computing the same attention (no softcap):
+    the yardstick of ``library_ms``, never called by the port."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] > pos[:, None] - window
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def sgdrc_phase(torch, seed):
+    from repro_torch.configs import get_config
+    from repro_torch.core import coloring
+    from repro_torch.kernels import ops, ref
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed + 70)
+    qwen, gemma = get_config("qwen3-1.7b"), get_config("gemma2-9b")
+
+    def randn(*shape, dtype, scale=1.0):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        return (x * scale if scale != 1.0 else x).to(dtype)
+
+    def heads(cfg):
+        return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def qkv(cfg, B, S, dtype):
+        H, Hkv, D = heads(cfg)
+        return tuple(randn(B, S, h, D, dtype=dtype) for h in (H, Hkv, Hkv))
+
+    # inputs, all from the seed
+    flash = [
+        dict(tag="qwen3-1.7b causal bfloat16", cfg=qwen, B=2, S=2048,
+             causal=True, window=None, softcap=None, dname="bfloat16"),
+        dict(tag="qwen3-1.7b causal float32", cfg=qwen, B=2, S=2048,
+             causal=True, window=None, softcap=None, dname="float32"),
+        dict(tag="gemma2-9b local bfloat16", cfg=gemma, B=1, S=8192,
+             causal=True, window=gemma.local_window,
+             softcap=gemma.attn_logit_softcap, dname="bfloat16"),
+        dict(tag="qwen3-1.7b non-causal float32", cfg=qwen, B=2, S=1024,
+             causal=False, window=None, softcap=None, dname="float32"),
+    ]
+    for c in flash:
+        c["qkv"] = qkv(c["cfg"], c["B"], c["S"], getattr(torch, c["dname"]))
+    dual = {d: (qkv(qwen, 1, 2048, getattr(torch, d)),
+                qkv(qwen, 4, 2048, getattr(torch, d)))
+            for d in ("bfloat16", "float32")}
+    # gate projection: activations ~N(0, 1), weights ~N(0, 1/d_model) as the
+    # models' init scales them
+    Kd, Nf = qwen.d_model, qwen.d_ff
+    mm = {d: (randn(256, Kd, dtype=getattr(torch, d)),
+              randn(Kd, Nf, dtype=getattr(torch, d), scale=Kd ** -0.5),
+              randn(2048, Kd, dtype=getattr(torch, d)),
+              randn(Kd, Nf, dtype=getattr(torch, d), scale=Kd ** -0.5))
+          for d in ("bfloat16", "float32")}
+    t0 = time.perf_counter()
+    hm = coloring.gpu_hash_model("tesla-p40")
+    arena = coloring.ColoredArena(SPT_ARENA_BYTES, hm.channel_of,
+                                  hm.num_channels, hm.granularity)
+    ls_ch, be_ch = coloring.split_channels(hm.num_channels, 1 / 3)
+    spt_ls = arena.alloc("ls", 1 << 30, ls_ch).spt
+    spt_be = arena.alloc("be", 512 << 20, be_ch).spt
+    require(arena.isolation_violations(arena.allocations["ls"]) == 0
+            and arena.isolation_violations(arena.allocations["be"]) == 0,
+            "SPT pages off their tenant's channels")
+    n_arena = SPT_ARENA_BYTES // hm.granularity
+    page = hm.granularity // 2                 # bf16 elements a page
+    log(f"  ColoredArena {SPT_ARENA_BYTES >> 20} MiB, tesla-p40 hash, "
+        f"{n_arena} pages of {hm.granularity} B: LS {len(spt_ls)} pages on "
+        f"channels {ls_ch}, BE {len(spt_be)} on {be_ch} "
+        f"({time.perf_counter() - t0:.1f}s on the host)")
+    spts = {t: torch.from_numpy(s).to(dev) for t, s in (("ls", spt_ls),
+                                                        ("be", spt_be))}
+    xs = {t: randn(len(s), page, dtype=torch.bfloat16)
+          for t, s in spts.items()}
+    torch.cuda.synchronize()
+
+    # -- the path, through the public entry points, counted from zero ----
+    ops.reset_launch_counts()
+    for c in flash:
+        c["out"] = ops.flash_attention(*c["qkv"], causal=c["causal"],
+                                       window=c["window"],
+                                       softcap=c["softcap"])
+    dual_out, dual_flash = {}, {}
+    for d, (ls, be) in dual.items():
+        dual_out[d] = {sm: ops.dual_tenant_attention(*ls, *be, sm_be=sm)
+                       for sm in (0.1, 0.3, 0.9)}
+        dual_flash[d] = (ops.flash_attention(*ls), ops.flash_attention(*be))
+    mm_out = {d: ops.dual_tenant_matmul(*a, sm_be=0.3) for d, a in mm.items()}
+    scattered = {t: ops.spt_scatter(xs[t], spts[t], n_arena) for t in xs}
+    # one device arena holding both tenants (their pages are disjoint)
+    be_page = torch.zeros(n_arena, dtype=torch.bool, device=dev)
+    be_page[spts["be"].long()] = True
+    shared = torch.where(be_page[:, None], scattered["be"], scattered["ls"])
+    gathered = {t: ops.spt_gather(shared, spts[t]) for t in xs}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"  launches {counts}")
+    for name in ("flash_attention", "dual_tenant_attention",
+                 "dual_tenant_matmul", "spt_gather", "spt_scatter"):
+        require(counts[name] > 0, f"{name} not launched: {counts}")
+
+    # -- checks against the plain versions --------------------------------
+    results = {}
+
+    def close(a, b, dname, what):
+        tol = TOL[dname]
+        err = (a.float() - b.float()).abs().max().item()
+        require(err == err and torch.allclose(a.float(), b.float(), rtol=tol,
+                                              atol=tol),
+                f"{what}: not within {tol} (max abs {err})")
+        return err
+
+    for c in flash:
+        want = ref.ref_attention(*c["qkv"], causal=c["causal"],
+                                 window=c["window"], softcap=c["softcap"])
+        c["err"] = close(c["out"], want, c["dname"],
+                         f"flash_attention {c['tag']}")
+        require(tuple(c["out"].shape) == tuple(c["qkv"][0].shape),
+                f"flash_attention {c['tag']}: shape {c['out'].shape}")
+        del want
+    dual_err = {}
+    for d, (ls, be) in dual.items():
+        fl, fb = dual_flash[d]
+        for sm, (o_ls, o_be) in dual_out[d].items():
+            require(torch.equal(o_ls, fl) and torch.equal(o_be, fb),
+                    f"dual_tenant_attention {d} sm_be={sm} != flash_attention")
+        o0 = dual_out[d][0.1]
+        for sm in (0.3, 0.9):
+            same = all(torch.equal(a, b) for a, b in zip(dual_out[d][sm], o0))
+            require(same, f"dual_tenant_attention {d}: sm_be {sm} != sm_be "
+                          "0.1")
+        err = max(close(o, ref.ref_attention(*t, causal=True), d,
+                        f"dual_tenant_attention {d}")
+                  for o, t in zip(dual_out[d][0.3], (ls, be)))
+        dual_err[d] = err
+        log(f"  dual_tenant_attention {d}: == flash_attention bit for bit "
+            f"and across sm_be 0.1/0.3/0.9; vs plain max abs {err:.3e}")
+    mm_err = {}
+    for d, a in mm.items():
+        rtol, atol = MATMUL_TOL[d]
+        errs = []
+        for o, w in zip(mm_out[d], ref.ref_dual_tenant_matmul(*a)):
+            errs.append((o.float() - w.float()).abs().max().item())
+            require(torch.allclose(o.float(), w.float(), rtol=rtol,
+                                   atol=atol),
+                    f"dual_tenant_matmul {d}: not within rtol {rtol} atol "
+                    f"{atol} (max abs {errs[-1]})")
+        mm_err[d] = max(errs)
+        log(f"  dual_tenant_matmul {d}: vs plain max abs {mm_err[d]:.3e} "
+            f"(rtol {rtol}, atol {atol})")
+    lib_arena = torch.zeros_like(shared)
+    for t in xs:
+        lib_arena.index_copy_(0, spts[t].long(), xs[t])
+    require(torch.equal(shared, lib_arena), "spt_scatter != index_copy_")
+    for t in xs:
+        require(torch.equal(gathered[t], xs[t]),
+                f"spt round trip of the {t.upper()} tensor is not exact")
+        require(torch.equal(gathered[t],
+                            shared.index_select(0, spts[t].long())),
+                f"spt_gather of the {t.upper()} tensor != index_select")
+    log("  spt: scatter == index_copy_, gather == index_select, round trip "
+        "exact, for both tenants")
+    del lib_arena, shared, scattered, gathered, be_page
+    torch.cuda.empty_cache()
+
+    # -- times (after the counts: these launches are not the path's) -------
+    for c in flash:
+        H, Hkv, D = heads(c["cfg"])
+        q, k, v = c["qkv"]
+        kw = dict(causal=c["causal"], window=c["window"],
+                  softcap=c["softcap"])
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=10)
+        plain = cuda_ms(lambda: ref.ref_attention(q, k, v, **kw), iters=2,
+                        warmup=1)
+        lib = None if c["softcap"] else cuda_ms(
+            lambda: _sdpa(torch, q, k, v, c["causal"], c["window"]))
+        bound = _bound(*_attn_work(c["B"], c["S"], H, Hkv, D,
+                                   q.element_size(), c["causal"],
+                                   c["window"]), c["dname"])
+        log(f"  flash_attention {c['tag']:32s} max_abs_err={c['err']:.3e} "
+            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms="
+            f"{'null' if lib is None else f'{lib:.4f}'} "
+            f"bound_ms={bound[0]:.4f} ({bound[1]})")
+        if c is flash[0]:
+            results["flash_attention"] = dict(
+                max_abs_err=c["err"], ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bound[0], bound_by=bound[1])
+    H, Hkv, D = heads(qwen)
+    for d, (ls, be) in dual.items():
+        err = dual_err[d]
+        ms = cuda_ms(lambda: ops.dual_tenant_attention(*ls, *be, sm_be=0.3),
+                     iters=10)
+        plain = cuda_ms(lambda: (ref.ref_attention(*ls),
+                                 ref.ref_attention(*be)), iters=2, warmup=1)
+        lib = cuda_ms(lambda: (_sdpa(torch, *ls, True, None),
+                               _sdpa(torch, *be, True, None)))
+        # both tenants: B 1 + B 4 rows of the same shape
+        bound = _bound(*_attn_work(5, 2048, H, Hkv, D, ls[0].element_size(),
+                                   True, None), d)
+        log(f"  dual_tenant_attention {d:9s} max_abs_err={err:.3e} "
+            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"bound_ms={bound[0]:.4f} ({bound[1]})")
+        if d == "bfloat16":
+            results["dual_tenant_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bound[0], bound_by=bound[1])
+    for d, a in mm.items():
+        a_ls, b_ls, a_be, b_be = a
+        ms = cuda_ms(lambda: ops.dual_tenant_matmul(*a, sm_be=0.3), iters=10)
+        plain = cuda_ms(lambda: ref.ref_dual_tenant_matmul(*a), iters=5)
+        lib = cuda_ms(lambda: (torch.matmul(a_ls, b_ls),
+                               torch.matmul(a_be, b_be)))
+        M = a_ls.shape[0] + a_be.shape[0]
+        nbytes = (M * Kd + 2 * Kd * Nf + M * Nf) * a_ls.element_size()
+        bound = _bound(nbytes, 2.0 * M * Kd * Nf, d)
+        log(f"  dual_tenant_matmul {d:9s} max_abs_err={mm_err[d]:.3e} "
+            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"bound_ms={bound[0]:.4f} ({bound[1]})")
+        if d == "bfloat16":
+            results["dual_tenant_matmul"] = dict(
+                max_abs_err=mm_err[d], ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bound[0], bound_by=bound[1])
+    page_bytes = page * 2
+    for t in ("ls", "be"):
+        x, spt = xs[t], spts[t]
+        sl = spt.long()
+        arena_t = ops.spt_scatter(x, spt, n_arena)
+        n = len(spt)
+        rows = {
+            "spt_gather": (
+                lambda: ops.spt_gather(arena_t, spt),
+                lambda: ref.ref_spt_gather(arena_t, spt),
+                lambda: arena_t.index_select(0, sl),
+                2 * n * page_bytes + 4 * n),
+            "spt_scatter": (
+                lambda: ops.spt_scatter(x, spt, n_arena),
+                lambda: ref.ref_spt_scatter(x, spt, n_arena),
+                lambda: torch.zeros(n_arena, page, dtype=x.dtype,
+                                    device=dev).index_copy_(0, sl, x),
+                (n + n_arena) * page_bytes + 4 * n),
+        }
+        for name, (kern, plain_fn, lib_fn, nbytes) in rows.items():
+            ms = cuda_ms(kern, iters=10)
+            plain = cuda_ms(plain_fn, iters=5)
+            lib = cuda_ms(lib_fn, iters=10)
+            bound = _bound(nbytes, 0.0, "bfloat16")
+            log(f"  {name} {t.upper()} {n * page_bytes >> 20} MiB "
+                f"max_abs_err=0 ms={ms:.4f} plain_ms={plain:.4f} "
+                f"library_ms={lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
+            if t == "ls":
+                results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                     library_ms=lib, bound_ms=bound[0],
+                                     bound_by=bound[1])
+        del arena_t
+        torch.cuda.empty_cache()
+    return counts, results
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=6,
+    ap.add_argument("--until", type=int, default=7,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all six ran)")
+                         "lines are printed only when all seven ran)")
     args = ap.parse_args()
 
     import torch
@@ -602,10 +926,18 @@ def main():
     log("== phase 6: engine LS qwen3-1.7b, dense cache, flash")
     dense_counts = dense_phase(torch, args.seed)
 
+    if args.until <= 6:
+        return 1
+    log("== phase 7: SGDRC kernels (flash, dual-tenant attention and "
+        "matmul, SPT gather/scatter)")
+    sgdrc_counts, sgdrc_res = sgdrc_phase(torch, args.seed)
+    kres.update(sgdrc_res)
+
     launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
                                                 "prefill_attention_paged")},
                 **{k: dense_counts[k] for k in ("decode_attention",
-                                                "prefill_attention")}}
+                                                "prefill_attention")},
+                **{k: sgdrc_counts[k] for k in sgdrc_res}}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append({"name": name, "route": "cuda", "source": src,

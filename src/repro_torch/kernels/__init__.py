@@ -1,12 +1,13 @@
-"""Attention kernels for Hopper (CUDA C++ in ``csrc/``, built by ``nvcc``
-for ``sm_90a`` at first use) and their plain PyTorch versions (``ref``).
-``ops`` dispatches: CUDA tensors launch the kernels, CPU tensors take the
-plain versions; the CUDA wrappers live in ``decode_attention`` and
-``prefill_attention``.
+"""The kernel layer for Hopper: CUDA C++ in ``csrc/``, built by ``nvcc`` for
+``sm_90a`` at first use, and each kernel's plain PyTorch version (``ref``).
+``ops`` is the public API and dispatches: CUDA tensors launch the kernels,
+CPU tensors take the plain versions. The CUDA wrappers live in
+``decode_attention``, ``prefill_attention``, ``flash_attention``,
+``dual_tenant_attention``, ``dual_tenant_matmul`` and ``spt_gather``.
 
 Ported: decode_attention, decode_attention_paged, prefill_attention,
-prefill_attention_paged. The reference's other Pallas kernels
-(flash_attention, dual_tenant_attention, dual_tenant_matmul,
-spt_gather/spt_scatter, ssd_scan) are not ported yet.
+prefill_attention_paged, flash_attention, dual_tenant_attention,
+dual_tenant_matmul, spt_gather and spt_scatter. The reference's ssd_scan has
+its plain version (``ref.ref_ssd_scan``) and no kernel yet.
 """
 from . import ops, ref

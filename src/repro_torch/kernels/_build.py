@@ -23,14 +23,40 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "prefill_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# the one C signature every entry point shares (attention_core.cuh)
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# the one C signature every attention entry point shares (attention_core.cuh)
 ATTENTION_ARGTYPES = ([_P] * 8 + [_I] * 10 + [_L] * 12
-                      + [ctypes.c_float, _P])
+                      + [_F, _P])
+# flash_attention.cu: q, k, v, out; dtype, B, S, H, Hkv, D, causal, window;
+# scale, softcap; stream
+FLASH_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _F, _P]
+# dual_tenant_attention.cu: q, k, v, out of LS then BE; order, ticket;
+# dtype, S, H, Hkv, D, n_units; scale; stream
+DUAL_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _P]
+# dual_tenant_matmul.cu: a, b, out of LS then BE; order, ticket; dtype,
+# M_ls, M_be, K, N, n_order; stream
+DUAL_MATMUL_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
+# spt_gather.cu: src, dst, spt; n, row bytes, src rows, dst rows; stream
+SPT_ARGTYPES = [_P] * 3 + [_L] * 4 + [_P]
+#: source -> {C symbol: (argtypes, restype)}; every source builds one library
+ENTRIES = {
+    "decode_attention": {"sgdrc_decode_attention": (ATTENTION_ARGTYPES, _I)},
+    "prefill_attention": {
+        "sgdrc_prefill_attention": (ATTENTION_ARGTYPES, _I)},
+    "flash_attention": {"sgdrc_flash_attention": (FLASH_ARGTYPES, _I)},
+    "dual_tenant_attention": {
+        "sgdrc_dual_tenant_attention": (DUAL_ATTENTION_ARGTYPES, _I),
+        "sgdrc_flash_tile_rows": ([_I], _I)},
+    "dual_tenant_matmul": {
+        "sgdrc_dual_tenant_matmul": (DUAL_MATMUL_ARGTYPES, _I),
+        "sgdrc_matmul_tile": ([], _I)},
+    "spt_gather": {"sgdrc_spt_gather": (SPT_ARGTYPES, _I),
+                   "sgdrc_spt_scatter": (SPT_ARGTYPES, _I)},
+}
+SOURCES = tuple(ENTRIES)
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -109,14 +135,53 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(lib_path(name)))
-            fn = getattr(lib, f"sgdrc_{name}")
-            fn.argtypes = ATTENTION_ARGTYPES
-            fn.restype = ctypes.c_int
+            for sym, (argtypes, restype) in ENTRIES[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _libs[name] = lib
     return lib
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+def entry(name: str, symbol: str = ""):
+    """The C function ``symbol`` (default ``sgdrc_<name>``) of
+    ``csrc/<name>.cu``, bound with its argument types."""
+    return getattr(load(name), symbol or f"sgdrc_{name}")
+
+
+def stream_of(device) -> int:
+    """The current CUDA stream of ``device``, as the C entry points take
+    it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(name: str, err: int):
+    """Raise on a non-zero ``cudaError_t`` from a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def check_cuda(name: str, tensors: dict, dtype=None):
+    """Raise unless every tensor is contiguous, on the first one's CUDA
+    device, and (when ``dtype`` is given) of that dtype, one the kernels
+    take."""
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: CUDA kernel called on {dev}")
+    if dtype is not None and dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported dtype {dtype}")
+    for what, t in tensors.items():
+        if t.device != dev or (dtype is not None and t.dtype != dtype):
+            raise ValueError(f"{name}: {what} is {t.dtype} on {t.device}; "
+                             f"need {dtype} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    return dev
+
+
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -148,7 +213,7 @@ def launch_attention(name, q, out, k, v, pos, *, abort=None, progress=None,
             raise ValueError(f"{name}: {what} needs a contiguous last axis")
     if q.stride(-1) != 1:
         raise ValueError(f"{name}: q needs a contiguous last axis")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {q.dtype}")
     B, Sq, H, D = q.shape
     Hkv = k.shape[1]
@@ -165,14 +230,11 @@ def launch_attention(name, q, out, k, v, pos, *, abort=None, progress=None,
         ptrs[7] = _i32(page_table, (B, page_table.shape[1]), dev,
                         "page_table")
         pt_stride, n_pages = page_table.shape[1], k.shape[0]
-    fn = getattr(load(name), f"sgdrc_{name}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*ptrs, _DTYPE_CODES[q.dtype], B, Sq, H, Hkv, D, int(window),
-             int(page_size), pt_stride, n_pages,
-             q.stride(0), q.stride(1), q.stride(2),
-             out.stride(0), out.stride(1), out.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             float(D ** -0.5), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    err = entry(name)(*ptrs, DTYPE_CODES[q.dtype], B, Sq, H, Hkv, D,
+                      int(window), int(page_size), pt_stride, n_pages,
+                      q.stride(0), q.stride(1), q.stride(2),
+                      out.stride(0), out.stride(1), out.stride(2),
+                      k.stride(0), k.stride(1), k.stride(2),
+                      v.stride(0), v.stride(1), v.stride(2),
+                      float(D ** -0.5), stream_of(dev))
+    check_launch(name, err)

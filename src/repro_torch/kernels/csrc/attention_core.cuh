@@ -29,10 +29,9 @@
 // sequential kv grid axis becomes the loop over key tiles inside the block.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace sgdrc {
 
@@ -61,27 +60,6 @@ struct AttnArgs {
   int64_t v_s0, v_sh, v_ss;
   float scale;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
 
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
@@ -248,25 +226,12 @@ cudaError_t launch_typed(const AttnArgs& a, int D, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16
 template <int ROWS>
 int launch(const AttnArgs& a, int dtype, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_typed<float, ROWS>(a, D, s);
-      break;
-    case 1:
-      err = launch_typed<__nv_bfloat16, ROWS>(a, D, s);
-      break;
-    case 2:
-      err = launch_typed<__half, ROWS>(a, D, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_dtype(dtype, [&](auto tag) {
+    return launch_typed<typename decltype(tag)::type, ROWS>(a, D, s);
+  }));
 }
 
 // One C signature for all four entry points (ctypes binds it once).
