@@ -3,11 +3,12 @@
 ``ops`` is the public API and dispatches: CUDA tensors launch the kernels,
 CPU tensors take the plain versions. The CUDA wrappers live in
 ``decode_attention``, ``prefill_attention``, ``flash_attention``,
-``dual_tenant_attention``, ``dual_tenant_matmul`` and ``spt_gather``.
+``dual_tenant_attention``, ``dual_tenant_matmul``, ``spt_gather`` and
+``ssd_scan``.
 
-Ported: decode_attention, decode_attention_paged, prefill_attention,
-prefill_attention_paged, flash_attention, dual_tenant_attention,
-dual_tenant_matmul, spt_gather and spt_scatter. The reference's ssd_scan has
-its plain version (``ref.ref_ssd_scan``) and no kernel yet.
+Ported, all ten of the reference's kernels: decode_attention,
+decode_attention_paged, prefill_attention, prefill_attention_paged,
+flash_attention, dual_tenant_attention, dual_tenant_matmul, spt_gather,
+spt_scatter and ssd_scan.
 """
 from . import ops, ref

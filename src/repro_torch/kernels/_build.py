@@ -41,6 +41,9 @@ DUAL_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _P]
 DUAL_MATMUL_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
 # spt_gather.cu: src, dst, spt; n, row bytes, src rows, dst rows; stream
 SPT_ARGTYPES = [_P] * 3 + [_L] * 4 + [_P]
+# ssd_scan.cu: q, k, v, log_w, y; dtype, wdtype, B, T, H, K, P, L;
+# strides (int64[15]); stream
+SSD_ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.POINTER(_L), _P]
 #: source -> {C symbol: (argtypes, restype)}; every source builds one library
 ENTRIES = {
     "decode_attention": {"sgdrc_decode_attention": (ATTENTION_ARGTYPES, _I)},
@@ -55,6 +58,7 @@ ENTRIES = {
         "sgdrc_matmul_tile": ([], _I)},
     "spt_gather": {"sgdrc_spt_gather": (SPT_ARGTYPES, _I),
                    "sgdrc_spt_scatter": (SPT_ARGTYPES, _I)},
+    "ssd_scan": {"sgdrc_ssd_scan": (SSD_ARGTYPES, _I)},
 }
 SOURCES = tuple(ENTRIES)
 

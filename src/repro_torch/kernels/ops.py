@@ -18,6 +18,7 @@ from . import flash_attention as _flash
 from . import prefill_attention as _prefill
 from . import ref
 from . import spt_gather as _spt
+from . import ssd_scan as _ssd
 
 #: every kernel wrapper, by name; each counts its launches in ``.launches``
 KERNELS = {
@@ -30,6 +31,7 @@ KERNELS = {
     "dual_tenant_matmul": _dtm.dual_tenant_matmul,
     "spt_gather": _spt.spt_gather,
     "spt_scatter": _spt.spt_scatter,
+    "ssd_scan": _ssd.ssd_scan,
 }
 
 
@@ -131,3 +133,10 @@ def spt_scatter(x, spt, n_arena_pages):
     if not _on_cpu(x):
         return _spt.spt_scatter(x, spt, n_arena_pages)
     return ref.ref_spt_scatter(x, torch.as_tensor(spt), n_arena_pages)
+
+
+def ssd_scan(q, k, v, log_w, *, chunk=64):
+    if not _on_cpu(q):
+        return _ssd.ssd_scan(q, k, v, log_w, chunk=chunk)
+    _ssd.chunk_len(q.shape[1], chunk)
+    return ref.ref_ssd_scan(q, k, v, log_w)

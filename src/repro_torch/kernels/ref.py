@@ -3,8 +3,8 @@
 They are the CPU path of :mod:`repro_torch.kernels.ops` and the yardstick the
 CUDA kernels are held against on the card. Scores and softmax run in f32 with
 the reference's finite ``NEG_INF``, products accumulate in f32, and outputs
-come back in the input dtype. ``ref_ssd_scan`` has no CUDA kernel yet; it is
-here as the oracle of the kernel still to port.
+come back in the input dtype. ``ref_ssd_scan`` steps the recurrence token
+by token, the exact oracle of the chunked ``ssd_scan`` kernel.
 """
 from __future__ import annotations
 

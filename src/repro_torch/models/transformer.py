@@ -1,7 +1,8 @@
 """The decoder model of ``repro.models.transformer`` in PyTorch, for the
 pure-attention GQA configs (``stablelm-1.6b``, ``qwen3-1.7b``, ``gemma2``,
-``nemotron``): every config the paged serving engine runs without MLA or MoE.
-Any other family raises ``NotImplementedError``.
+``nemotron``), the SSM family (``rwkv6-7b``) and the hybrid family
+(``zamba2-1.2b``: mamba2 layers and a shared GQA attention block). MLA,
+MoE, encoder and vision models raise ``NotImplementedError``.
 
 Entry points:
     init_params(cfg, seed, device, dtype)   -> params dict
@@ -16,7 +17,10 @@ Params and caches keep the reference's structure: ``embed``, ``final_ln``,
 optional ``unembed``, the ``prefix`` list, and ``layers`` whose leaves are
 stacked ``[n_periods, ...]``. The layer stack is a Python loop over the
 periods (the reference scans), indexing each stacked leaf; caches are
-written in place through those views.
+written in place through those views (attention writes into them; SSM
+layers compute new state, conv and shift tensors, which are copied in).
+Hybrids keep the shared block's params in ``shared`` and its KV cache in
+``cache["layers"]["shared"]``, stacked per period.
 """
 from __future__ import annotations
 
@@ -26,12 +30,18 @@ import torch
 
 from . import attention as attn
 from . import mlp as mlpm
+from . import ssm as ssmm
 from .common import dt, embed_init, dense_init, rms_norm, softcap
 from ..configs.base import ModelConfig
 
+# a layer kind ending with this also fires the hybrid's shared block
+SHARED_SUFFIX = "_shared"
+SSM_KINDS = ("rwkv", "mamba")
+
 
 def _kind_base(kind: str) -> str:
-    return kind[: -len("_shared")] if kind.endswith("_shared") else kind
+    return (kind[: -len(SHARED_SUFFIX)] if kind.endswith(SHARED_SUFFIX)
+            else kind)
 
 
 def pageable(cfg: ModelConfig) -> bool:
@@ -52,11 +62,15 @@ def chunkable(cfg: ModelConfig) -> bool:
 
 def check_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if not pageable(cfg) or cfg.attn_type != "gqa" or cfg.moe:
+    kinds = {_kind_base(k) for k in cfg.layer_pattern}
+    attends = bool(kinds & {"global", "local"}) or cfg.family == "hybrid"
+    if (cfg.moe or cfg.encoder or cfg.vision
+            or not kinds <= {"global", "local", *SSM_KINDS}
+            or (attends and cfg.attn_type != "gqa")):
         raise NotImplementedError(
-            f"{cfg.name}: only pure-attention GQA decoders without MoE are "
-            "ported (MLA, MoE, SSM, hybrid, encoder and vision models are "
-            "later slices)")
+            f"{cfg.name}: the port runs GQA decoders without MoE and the "
+            "SSM and hybrid families (MLA, MoE, encoder and vision models "
+            "are later slices)")
 
 
 def _pattern_segments(cfg: ModelConfig):
@@ -73,10 +87,26 @@ def _pattern_segments(cfg: ModelConfig):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(seed, path, cfg, dtype, device, lead=()):
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    _, _, period, n_periods = _pattern_segments(cfg)
+    per = sum(1 for k in period if k.endswith(SHARED_SUFFIX))
+    return max(1, per * n_periods)
+
+
+def _init_layer(seed, path, cfg, kind, dtype, device, lead=()):
+    kind = _kind_base(kind)
     D = cfg.d_model
     lead = tuple(lead)
     zeros = lambda: torch.zeros(lead + (D,), dtype=dtype, device=device)
+    if kind == "rwkv":
+        return {"ln1": zeros(),
+                "rwkv": ssmm.init_rwkv_block(seed, path + "/rwkv", cfg, dtype,
+                                             device, lead),
+                "ln2": zeros()}
+    if kind == "mamba":
+        return {"ln1": zeros(),
+                "mamba": ssmm.init_mamba2_block(seed, path + "/mamba", cfg,
+                                                dtype, device, lead)}
     p: Dict[str, Any] = {
         "ln1": zeros(),
         "attn": attn.init_gqa(seed, path + "/attn", cfg, dtype, device, lead),
@@ -107,15 +137,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     if not cfg.use_rope:
         params["pos_embed"] = embed_init(seed, "pos_embed",
                                          (cfg.max_position, D), dtype, device)
-    n_prefix, _, period, n_periods = _pattern_segments(cfg)
+    n_prefix, prefix_kind, period, n_periods = _pattern_segments(cfg)
     if n_prefix:
-        params["prefix"] = [_init_layer(seed, f"prefix/{i}", cfg, dtype,
-                                        device) for i in range(n_prefix)]
+        params["prefix"] = [_init_layer(seed, f"prefix/{i}", cfg, prefix_kind,
+                                        dtype, device)
+                            for i in range(n_prefix)]
     if n_periods:
         params["layers"] = {
-            f"s{j}": _init_layer(seed, f"layers/s{j}", cfg, dtype, device,
-                                 lead=(n_periods,))
-            for j in range(len(period))}
+            f"s{j}": _init_layer(seed, f"layers/s{j}", cfg, kind, dtype,
+                                 device, lead=(n_periods,))
+            for j, kind in enumerate(period)}
+    if cfg.family == "hybrid":
+        params["shared"] = {
+            "ln1": torch.zeros((D,), dtype=dtype, device=device),
+            "attn": attn.init_gqa(seed, "shared/attn", cfg, dtype, device),
+            "ln2": torch.zeros((D,), dtype=dtype, device=device),
+            "mlp": mlpm.init_mlp(seed, "shared/mlp", D, cfg.d_ff,
+                                 cfg.mlp_act, dtype, device),
+            "in_proj": dense_init(seed, "shared/in_proj",
+                                  (n_shared_invocations(cfg), 2 * D, D),
+                                  dtype, device),
+        }
     return params
 
 
@@ -172,21 +214,84 @@ def _attn_layer(p, x, cfg, kind, ctx, cache=None, pos=None):
     return x + _maybe_post(m, p, "ln2_post", cfg), new_cache
 
 
+def _store(cache, new):
+    """Copy an SSM layer's new state into its cache views (in place): the
+    rows of every slot advance, sentinel rows included, as in the
+    reference, where only attention writes drop."""
+    if cache is not None:
+        for name, t in new.items():
+            cache[name].copy_(t)
+
+
+def _rwkv_layer(p, x, cfg, cache=None):
+    rp = p["rwkv"]
+    st, tm_last, cm_last = ((cache["state"], cache["tm_shift"],
+                             cache["cm_shift"]) if cache is not None
+                            else (None, None, None))
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, new_state, tm_shift = ssmm.rwkv_time_mix(rp, h, cfg, st, tm_last)
+    x = x + y
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y2, cm_shift = ssmm.rwkv_channel_mix(rp, h2, cfg, cm_last)
+    _store(cache, {"state": new_state, "tm_shift": tm_shift,
+                   "cm_shift": cm_shift})
+    return x + y2
+
+
+def _mamba_layer(p, x, cfg, cache=None):
+    st, cv = ((cache["state"], cache["conv"]) if cache is not None
+              else (None, None))
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, new_state, new_conv = ssmm.mamba2_block(p["mamba"], h, cfg, st, cv)
+    _store(cache, {"state": new_state, "conv": new_conv})
+    return x + y
+
+
+def _shared_block(sp, x, x0, cfg, inv, ctx, cache=None, pos=None):
+    """zamba2 shared attention block: concat(current, original embedding),
+    the invocation's input projection, shared attn+MLP; the delta is added
+    to the trunk."""
+    sp = cast_tree(sp, cfg)
+    h = torch.cat([x, x0.to(x.dtype)], dim=-1) @ sp["in_proj"][inv]
+    p = {k: sp[k] for k in ("ln1", "attn", "ln2", "mlp")}
+    out, _ = _attn_layer(p, h, cfg, "global", ctx, cache, pos)
+    return x + (out - h)
+
+
+def _apply_one(p, x, cfg, kind, ctx, cache, pos):
+    """One pattern slot (the shared block is fired by the caller)."""
+    p = cast_tree(p, cfg)
+    base = _kind_base(kind)
+    if base == "rwkv":
+        return _rwkv_layer(p, x, cfg, cache)
+    if base == "mamba":
+        return _mamba_layer(p, x, cfg, cache)
+    return _attn_layer(p, x, cfg, base, ctx, cache, pos)[0]
+
+
 def _apply_stack(params, cfg, x, ctx, cache=None, pos=None):
-    """Prefix layers, then the period loop over the stacked leaves. Cache
-    leaves are updated in place; the returned cache is the one given."""
+    """Prefix layers, then the period loop over the stacked leaves, with
+    the shared block after each ``*_shared`` slot (invocation ``i *
+    n_shared_per + shared_i``). Cache leaves are updated in place; the
+    returned cache is the one given."""
     n_prefix, prefix_kind, period, n_periods = _pattern_segments(cfg)
     for i in range(n_prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x, _ = _attn_layer(cast_tree(params["prefix"][i], cfg), x, cfg,
-                           prefix_kind, ctx, c, pos)
+        x = _apply_one(params["prefix"][i], x, cfg, prefix_kind, ctx, c, pos)
+    n_shared_per = max(1, sum(1 for k in period if k.endswith(SHARED_SUFFIX)))
+    at = lambda tree, i: tree_map(lambda a: a[i], tree)
     for i in range(n_periods):
+        shared_i = 0
         for j, kind in enumerate(period):
-            p = tree_map(lambda a: a[i], params["layers"][f"s{j}"])
-            c = (tree_map(lambda a: a[i], cache["layers"][f"s{j}"])
-                 if cache is not None else None)
-            x, _ = _attn_layer(cast_tree(p, cfg), x, cfg, _kind_base(kind),
-                               ctx, c, pos)
+            c = at(cache["layers"][f"s{j}"], i) if cache is not None else None
+            x = _apply_one(at(params["layers"][f"s{j}"], i), x, cfg, kind,
+                           ctx, c, pos)
+            if kind.endswith(SHARED_SUFFIX):
+                sc = (at(cache["layers"]["shared"], i) if cache is not None
+                      else None)
+                x = _shared_block(params["shared"], x, ctx["x0"], cfg,
+                                  i * n_shared_per + shared_i, ctx, sc, pos)
+                shared_i += 1
     return x, cache
 
 
@@ -200,8 +305,13 @@ def _embed_tokens(params, cfg, tokens, positions=None):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if not cfg.use_rope:
         pos = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-               if positions is None else positions)
-        x = x + params["pos_embed"][pos.long()].to(x.dtype)
+               if positions is None else positions).long()
+        table = params["pos_embed"]
+        # a position past the table (an engine's sentinel row) reads NaN,
+        # as the reference's ``jnp.take`` fills it; it never indexes out
+        inside = (pos >= 0) & (pos < table.shape[0])
+        pe = table[pos.clamp(0, table.shape[0] - 1)].to(x.dtype)
+        x = x + torch.where(inside[..., None], pe, float("nan"))
     return x
 
 
@@ -220,31 +330,54 @@ def forward(params, cfg: ModelConfig, batch, last_only: bool = False):
     x = _embed_tokens(params, cfg, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]}
+    if cfg.family == "hybrid":
+        ctx["x0"] = x
     x, _ = _apply_stack(params, cfg, x, ctx)
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x), {}
 
 
-def _layer_cache(cfg, lead, S, dtype, device):
-    shape = tuple(lead) + (cfg.num_kv_heads, S, cfg.head_dim)
+def _layer_cache(cfg, kind, lead, S, dtype, device):
+    """One layer's cache with leading axes ``lead`` (``(B,)``, or
+    ``(n_periods, B)`` for the stack). SSM state is f32; conv and shift
+    rows are in the activation dtype."""
+    kind = _kind_base(kind)
+    lead = tuple(lead)
+    zeros = lambda *shape, dt_=dtype: torch.zeros(lead + shape, dtype=dt_,
+                                                  device=device)
+    D, s = cfg.d_model, cfg.ssm
+    if kind == "rwkv":
+        H = D // s.head_dim
+        return {"state": zeros(H, s.head_dim, s.head_dim, dt_=torch.float32),
+                "tm_shift": zeros(1, D), "cm_shift": zeros(1, D)}
+    if kind == "mamba":
+        d_in = s.expand * D
+        return {"state": zeros(d_in // s.head_dim, s.state_dim, s.head_dim,
+                               dt_=torch.float32),
+                "conv": zeros(s.conv_dim - 1, d_in + 2 * s.state_dim)}
     # KV-major [.., Hkv, S, Dh]: the attention cores read it as is
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros(cfg.num_kv_heads, S, cfg.head_dim),
+            "v": zeros(cfg.num_kv_heads, S, cfg.head_dim)}
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, dtype=None,
                device="cuda"):
     check_supported(cfg)
     dtype = dtype or dt(cfg.activation_dtype)
-    n_prefix, _, period, n_periods = _pattern_segments(cfg)
+    n_prefix, prefix_kind, period, n_periods = _pattern_segments(cfg)
     cache: Dict[str, Any] = {}
     if n_prefix:
-        cache["prefix"] = [_layer_cache(cfg, (B,), max_seq, dtype, device)
+        cache["prefix"] = [_layer_cache(cfg, prefix_kind, (B,), max_seq,
+                                        dtype, device)
                            for _ in range(n_prefix)]
-    cache["layers"] = {f"s{j}": _layer_cache(cfg, (n_periods, B), max_seq,
-                                             dtype, device)
-                       for j in range(len(period))}
+    lead = (n_periods, B)
+    cache["layers"] = {f"s{j}": _layer_cache(cfg, kind, lead, max_seq, dtype,
+                                             device)
+                       for j, kind in enumerate(period)}
+    if any(k.endswith(SHARED_SUFFIX) for k in period):
+        cache["layers"]["shared"] = _layer_cache(cfg, "global", lead,
+                                                 max_seq, dtype, device)
     return cache
 
 
@@ -276,6 +409,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, ctx_extra=None,
         ctx["use_flash"] = True
     if ctx_extra:
         ctx.update(ctx_extra)
+    if cfg.family == "hybrid":
+        ctx["x0"] = x
     x, cache = _apply_stack(params, cfg, x, ctx, cache=cache, pos=pos)
     return _logits(params, cfg, x), cache
 
@@ -288,8 +423,11 @@ def prefill_step(params, cfg: ModelConfig, tokens, cache, pos,
     the cache. Rows at an out-of-window sentinel position write nothing.
     ``ctx_extra={"page_table": [B,P]}`` switches to the paged pools;
     ``use_flash`` routes eligible layers through the chunked-prefill kernel.
-    Returns (last-position logits [B,1,V], cache)."""
+    Returns (last-position logits [B,1,V], cache). Only :func:`chunkable`
+    configs: SSM state would have to step token by token."""
     check_supported(cfg)
+    if not chunkable(cfg):
+        raise ValueError(f"{cfg.name} is not chunkable; use prefill")
     B, Sq = tokens.shape
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int32) \
         .reshape(-1).expand(B)
@@ -306,7 +444,9 @@ def prefill_step(params, cfg: ModelConfig, tokens, cache, pos,
 
 def prefill(params, cfg: ModelConfig, batch, max_seq: int):
     """Reference prompt processing: one decode step per prompt token into a
-    fresh dense cache. Returns (last logits [B,1,V], cache)."""
+    fresh dense cache, without the flash kernels (the serving engine's
+    prompt path for models that are not :func:`chunkable`). Returns (last
+    logits [B,1,V], cache)."""
     tokens = batch["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_seq, device=tokens.device)
     logits = None

@@ -12,6 +12,13 @@ per-quantum token budget. Chunks run through one batched
 always its own one-token chunk, so generated tokens are equal across chunk
 sizes.
 
+Models that are not ``tf.chunkable`` (the SSM and hybrid families, whose
+recurrent state must step token by token) take the monolithic fallback
+instead: each quantum's admitted prompts run whole through one
+``tf.prefill`` call per prompt-length group, and the rows of that fresh
+cache are scattered into the slot cache. Such models keep dense per-slot
+caches (``paged=True`` raises for them).
+
 ``paged=True`` keeps the KV cache in a :class:`~.kv_cache.PagedKVCache`
 page pool (page-table admission); ``use_flash=True`` routes the attention
 core through the CUDA flash-decode / chunked-prefill kernels. LS and BE
@@ -26,7 +33,8 @@ PyTorch runs eagerly, so there is no compile step; pools and dense caches
 are updated in place. Not ported yet (``NotImplementedError``): the prefix
 cache, page growth, host swap, fault injection, the online controller and
 chunk governor, coloring, the simulator backend and the disaggregation
-hooks.
+hooks; and the MLA, MoE, encoder and vision model families
+(``tf.check_supported``).
 """
 from __future__ import annotations
 
@@ -115,6 +123,24 @@ class _TenantRT:
         return bool(self.queue) or any(r is not None for r in self.active)
 
 
+def _scatter_rows(dst_cache, src_cache, slots):
+    """Write the rows of a freshly prefilled cache into the slot cache, in
+    place. ``layers`` leaves are [n_periods, B, ...] (batch axis 1);
+    ``prefix`` entries are per-layer dicts with batch axis 0."""
+    for dp, sp in zip(dst_cache.get("prefix", []),
+                      src_cache.get("prefix", [])):
+        for name, d in dp.items():
+            d[slots] = sp[name].to(d.dtype)
+
+    def layers(d, s):
+        if isinstance(d, dict):
+            for name in d:
+                layers(d[name], s[name])
+        else:
+            d[:, slots] = s.to(d.dtype)
+    layers(dst_cache["layers"], src_cache["layers"])
+
+
 def _earliest_outstanding(rt: "_TenantRT") -> float:
     """Tenant-priority key for ``ServingEngine._pick``: earliest submit
     time among this tenant's queued + active requests."""
@@ -147,7 +173,9 @@ class _TorchBackend:
                                    use_flash=flash)
 
         rt.decode_fn = _decode
-        rt.chunk_fn = _chunk
+        # monolithic prompt processing (``_prefill_monolithic``) serves the
+        # models the cached-context chunk path cannot (SSM state)
+        rt.chunk_fn = _chunk if tf.chunkable(cfg) else None
 
     def add_tenant(self, rt: _TenantRT):
         eng = self.engine
@@ -208,6 +236,32 @@ class _TorchBackend:
         rt.last_tok[s] = req.output[0]
         if len(req.output) >= max(req.max_new, 1) or rt.pos[s] >= eng.max_seq:
             self._finish(rt, s)
+
+    def _prefill_monolithic(self, rt: _TenantRT, reqs: List[Request]) -> int:
+        """Prompt processing for non-chunkable models: one batched
+        ``tf.prefill`` call per prompt-length group (no flash kernels, as
+        in the reference), its rows scattered into the slot cache. Whole
+        prompts, one quantum. Returns tokens computed."""
+        eng = self.engine
+        by_len: Dict[int, List[Request]] = {}
+        for r in reqs:
+            by_len.setdefault(len(r.tokens), []).append(r)
+        tokens = 0
+        for L, group in by_len.items():
+            toks = self._dev(np.stack([r.tokens for r in group]))
+            slots = self._dev(np.asarray([r.slot for r in group], np.int64))
+            with torch.inference_mode():
+                last_logits, pcache = tf.prefill(rt.params, rt.cfg,
+                                                 {"tokens": toks},
+                                                 eng.max_seq)
+                _scatter_rows(rt.cache, pcache, slots)
+            first = last_logits[:, 0].argmax(dim=-1).cpu().numpy()
+            rt.prefill_computed += L * len(group)
+            tokens += L * len(group)
+            for j, req in enumerate(group):
+                req.prefill_pos = L
+                self._seed_first_token(rt, req, int(first[j]))
+        return tokens
 
     def _run_chunks(self, rt: _TenantRT, chunks) -> int:
         """Execute this quantum's prefill chunks: waves preserve per-slot
@@ -369,9 +423,12 @@ class _TorchBackend:
             if eng.arrival_hook is not None:
                 eng.arrival_hook(len(dec))
         admitted = sched.admit(rt, eng)
-        chunks = sched.prefill_chunks(rt, len(dec))
-        if chunks:
-            report.prefill_tokens = self._run_chunks(rt, chunks)
+        if rt.chunk_fn is not None:
+            chunks = sched.prefill_chunks(rt, len(dec))
+            if chunks:
+                report.prefill_tokens = self._run_chunks(rt, chunks)
+        elif admitted:
+            report.prefill_tokens = self._prefill_monolithic(rt, admitted)
         progressed = bool(dec or admitted or report.prefill_tokens)
         if progressed:
             eng.quantum_log.append(report)

@@ -181,4 +181,4 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         tf.init_params(smoke_config("deepseek-v2-236b"), 0, "cpu")
     with pytest.raises(NotImplementedError):
-        tf.init_cache(smoke_config("rwkv6-7b"), 1, 8, device="cpu")
+        tf.init_cache(smoke_config("whisper-small"), 1, 8, device="cpu")
