@@ -30,7 +30,13 @@ non-zero:
              same); spt_scatter/spt_gather of a 1 GiB LS and a 512 MiB BE
              bf16 tensor through the SPTs of a 2 GiB ColoredArena. Each
              against its plain version, and timed beside it, its bound and
-             one PyTorch library call.
+             one PyTorch library call. Every bf16 call of flash, dual-tenant
+             attention and the matmul must take the tensor-core ("wgmma")
+             route and every f32 call the CUDA-core ("simt") route; each
+             time is printed with its route, TFLOP/s and host enqueue
+             time (``host_ms``: checks, TMA tensor maps, launch), and
+             rows 5-7 of the kernels' JSON line carry the drive's
+             launches by route.
 8. SSM and hybrid families — (a) ``ops.ssd_scan`` at zamba2-1.2b's mamba2
              widths (B 4, T 2048, H 64, K 64, P 64, chunk 64) with mamba2's
              decays (bf16 and f32), the reference tests' decay range and
@@ -63,6 +69,14 @@ ROOT = Path(__file__).resolve().parent
 PAGE = 16
 # kernel tolerances of the reference's tests/test_kernels.py
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# phase 7 attention, beside TOL: the relative L2 error of each (batch row,
+# head) over the late query rows [S/2, S). TOL alone is blind there: a row
+# that sees n keys of N(0, 1) values has outputs of about sqrt(e / n), some
+# 0.03 at n 2048, the size of TOL's bf16 atol. A sound kernel misses by a
+# few bf16 roundings (the output on each side, P once in the kernel); a key
+# tile dropped or read twice by ~sqrt(128 / n). Every run also measures a
+# planted fault of that kind and requires it above the limit.
+LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -153,6 +167,19 @@ def cuda_ms(fn, iters=20, warmup=3):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_ms(fn, iters=50):
+    """Mean host time to enqueue ``fn`` (the wrapper's checks, its TMA
+    tensor-map encoding and the launch), with nothing waited on."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -665,9 +692,12 @@ def _sdpa(torch, q, k, v, causal, window):
 def sgdrc_phase(torch, seed):
     from repro_torch.configs import get_config
     from repro_torch.core import coloring
+    from repro_torch.kernels import dual_tenant_matmul as dtm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed + 70)
+
     qwen, gemma = get_config("qwen3-1.7b"), get_config("gemma2-9b")
 
     def randn(*shape, dtype, scale=1.0):
@@ -748,13 +778,32 @@ def sgdrc_phase(torch, seed):
     gathered = {t: ops.spt_gather(shared, spts[t]) for t in xs}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    routes = ops.route_counts()
     log(f"  launches {counts}")
+    log(f"  routes {routes}")
     for name in ("flash_attention", "dual_tenant_attention",
                  "dual_tenant_matmul", "spt_gather", "spt_scatter"):
         require(counts[name] > 0, f"{name} not launched: {counts}")
+    # every bf16 call of the drive takes the tensor-core body, every f32
+    # call the CUDA-core body
+    n_bf16 = {
+        "flash_attention": sum(c["dname"] == "bfloat16" for c in flash) + 2,
+        "dual_tenant_attention": 3, "dual_tenant_matmul": 1}
+    for name, n in n_bf16.items():
+        require(routes[name] == {"wgmma": n, "simt": counts[name] - n},
+                f"{name}: routes {routes[name]}, want {n} bf16 calls on "
+                "wgmma and the rest on simt")
 
     # -- checks against the plain versions --------------------------------
     results = {}
+
+    def late_rel(a, b):
+        """Largest relative L2 error of a against b over the rows [S/2, S)
+        of one (batch row, head)."""
+        h = b.shape[1] // 2
+        d, w = (a[:, h:].float() - b[:, h:].float()), b[:, h:].float()
+        return (d.square().sum((1, 3)).sqrt()
+                / w.square().sum((1, 3)).sqrt()).max().item()
 
     def close(a, b, dname, what):
         tol = TOL[dname]
@@ -762,16 +811,34 @@ def sgdrc_phase(torch, seed):
         require(err == err and torch.allclose(a.float(), b.float(), rtol=tol,
                                               atol=tol),
                 f"{what}: not within {tol} (max abs {err})")
-        return err
+        late = late_rel(a, b)
+        require(late <= LATE_REL_TOL[dname],
+                f"{what}: late rows' relative L2 error {late} over "
+                f"{LATE_REL_TOL[dname]}")
+        return err, late
 
     for c in flash:
-        want = ref.ref_attention(*c["qkv"], causal=c["causal"],
-                                 window=c["window"], softcap=c["softcap"])
-        c["err"] = close(c["out"], want, c["dname"],
-                         f"flash_attention {c['tag']}")
+        kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+        want = ref.ref_attention(*c["qkv"], **kw)
+        c["err"], c["late"] = close(c["out"], want, c["dname"],
+                                    f"flash_attention {c['tag']}")
         require(tuple(c["out"].shape) == tuple(c["qkv"][0].shape),
                 f"flash_attention {c['tag']}: shape {c['out'].shape}")
-        del want
+        # planted fault: key tile [S/2, S/2 + 128) holds the K/V of the tile
+        # before it, as a ring stage used twice would give
+        q, k, v = c["qkv"]
+        t0 = c["S"] // 2
+        k2, v2 = k.clone(), v.clone()
+        k2[:, t0:t0 + 128], v2[:, t0:t0 + 128] = k[:, t0 - 128:t0], \
+            v[:, t0 - 128:t0]
+        c["planted"] = late_rel(ref.ref_attention(q, k2, v2, **kw), want)
+        require(c["planted"] > LATE_REL_TOL[c["dname"]],
+                f"flash_attention {c['tag']}: the late-row check misses a "
+                f"planted fault ({c['planted']})")
+        log(f"  flash_attention {c['tag']}: late rows' relative L2 "
+            f"{c['late']:.3e}, planted fault {c['planted']:.3e} (limit "
+            f"{LATE_REL_TOL[c['dname']]})")
+        del want, k2, v2
     dual_err = {}
     for d, (ls, be) in dual.items():
         fl, fb = dual_flash[d]
@@ -783,12 +850,14 @@ def sgdrc_phase(torch, seed):
             same = all(torch.equal(a, b) for a, b in zip(dual_out[d][sm], o0))
             require(same, f"dual_tenant_attention {d}: sm_be {sm} != sm_be "
                           "0.1")
-        err = max(close(o, ref.ref_attention(*t, causal=True), d,
-                        f"dual_tenant_attention {d}")
-                  for o, t in zip(dual_out[d][0.3], (ls, be)))
+        errs = [close(o, ref.ref_attention(*t, causal=True), d,
+                      f"dual_tenant_attention {d}")
+                for o, t in zip(dual_out[d][0.3], (ls, be))]
+        err, late = (max(e[i] for e in errs) for i in (0, 1))
         dual_err[d] = err
         log(f"  dual_tenant_attention {d}: == flash_attention bit for bit "
-            f"and across sm_be 0.1/0.3/0.9; vs plain max abs {err:.3e}")
+            f"and across sm_be 0.1/0.3/0.9; vs plain max abs {err:.3e}, "
+            f"late rows' relative L2 {late:.3e}")
     mm_err = {}
     for d, a in mm.items():
         rtol, atol = MATMUL_TOL[d]
@@ -824,56 +893,72 @@ def sgdrc_phase(torch, seed):
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"])
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=10)
+        host = host_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=10)
         plain = cuda_ms(lambda: ref.ref_attention(q, k, v, **kw), iters=2,
                         warmup=1)
         lib = None if c["softcap"] else cuda_ms(
             lambda: _sdpa(torch, q, k, v, c["causal"], c["window"]))
-        bound = _bound(*_attn_work(c["B"], c["S"], H, Hkv, D,
-                                   q.element_size(), c["causal"],
-                                   c["window"]), c["dname"])
-        log(f"  flash_attention {c['tag']:32s} max_abs_err={c['err']:.3e} "
-            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms="
-            f"{'null' if lib is None else f'{lib:.4f}'} "
+        work = _attn_work(c["B"], c["S"], H, Hkv, D, q.element_size(),
+                          c["causal"], c["window"])
+        bound = _bound(*work, c["dname"])
+        log(f"  flash_attention {c['tag']:32s} route={fa.route(q.dtype)} "
+            f"max_abs_err={c['err']:.3e} ms={ms:.4f} "
+            f"TFLOP/s={work[1] / ms / 1e9:.1f} host_ms={host:.4f} "
+            f"plain_ms={plain:.4f} "
+            f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
             f"bound_ms={bound[0]:.4f} ({bound[1]})")
         if c is flash[0]:
             results["flash_attention"] = dict(
                 max_abs_err=c["err"], ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                routes=routes["flash_attention"])
     H, Hkv, D = heads(qwen)
     for d, (ls, be) in dual.items():
         err = dual_err[d]
         ms = cuda_ms(lambda: ops.dual_tenant_attention(*ls, *be, sm_be=0.3),
                      iters=10)
+        host = host_ms(lambda: ops.dual_tenant_attention(*ls, *be,
+                                                         sm_be=0.3), iters=10)
         plain = cuda_ms(lambda: (ref.ref_attention(*ls),
                                  ref.ref_attention(*be)), iters=2, warmup=1)
         lib = cuda_ms(lambda: (_sdpa(torch, *ls, True, None),
                                _sdpa(torch, *be, True, None)))
         # both tenants: B 1 + B 4 rows of the same shape
-        bound = _bound(*_attn_work(5, 2048, H, Hkv, D, ls[0].element_size(),
-                                   True, None), d)
-        log(f"  dual_tenant_attention {d:9s} max_abs_err={err:.3e} "
-            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+        work = _attn_work(5, 2048, H, Hkv, D, ls[0].element_size(), True,
+                          None)
+        bound = _bound(*work, d)
+        log(f"  dual_tenant_attention {d:9s} route={fa.route(ls[0].dtype)} "
+            f"max_abs_err={err:.3e} ms={ms:.4f} "
+            f"TFLOP/s={work[1] / ms / 1e9:.1f} host_ms={host:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} "
             f"bound_ms={bound[0]:.4f} ({bound[1]})")
         if d == "bfloat16":
             results["dual_tenant_attention"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                routes=routes["dual_tenant_attention"])
     for d, a in mm.items():
         a_ls, b_ls, a_be, b_be = a
         ms = cuda_ms(lambda: ops.dual_tenant_matmul(*a, sm_be=0.3), iters=10)
+        host = host_ms(lambda: ops.dual_tenant_matmul(*a, sm_be=0.3),
+                       iters=10)
         plain = cuda_ms(lambda: ref.ref_dual_tenant_matmul(*a), iters=5)
         lib = cuda_ms(lambda: (torch.matmul(a_ls, b_ls),
                                torch.matmul(a_be, b_be)))
         M = a_ls.shape[0] + a_be.shape[0]
         nbytes = (M * Kd + 2 * Kd * Nf + M * Nf) * a_ls.element_size()
         bound = _bound(nbytes, 2.0 * M * Kd * Nf, d)
-        log(f"  dual_tenant_matmul {d:9s} max_abs_err={mm_err[d]:.3e} "
-            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+        log(f"  dual_tenant_matmul {d:9s} "
+            f"route={dtm.route(a_ls.dtype, Kd, Nf)} "
+            f"max_abs_err={mm_err[d]:.3e} ms={ms:.4f} "
+            f"TFLOP/s={2.0 * M * Kd * Nf / ms / 1e9:.1f} host_ms={host:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} "
             f"bound_ms={bound[0]:.4f} ({bound[1]})")
         if d == "bfloat16":
             results["dual_tenant_matmul"] = dict(
                 max_abs_err=mm_err[d], ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                routes=routes["dual_tenant_matmul"])
     page_bytes = page * 2
     for t in ("ls", "be"):
         x, spt = xs[t], spts[t]

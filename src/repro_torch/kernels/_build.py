@@ -30,15 +30,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # the one C signature every attention entry point shares (attention_core.cuh)
 ATTENTION_ARGTYPES = ([_P] * 8 + [_I] * 10 + [_L] * 12
                       + [_F, _P])
-# flash_attention.cu: q, k, v, out; dtype, B, S, H, Hkv, D, causal, window;
-# scale, softcap; stream
-FLASH_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _F, _P]
+# flash_attention.cu: q, k, v, out; dtype, B, S, H, Hkv, D, causal, window,
+# wgmma (the route); scale, softcap; stream
+FLASH_ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _F, _P]
 # dual_tenant_attention.cu: q, k, v, out of LS then BE; order, ticket;
-# dtype, S, H, Hkv, D, n_units; scale; stream
-DUAL_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _P]
+# dtype, B_ls, B_be, S, H, Hkv, D, n_units, wgmma; scale; stream
+DUAL_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _P]
 # dual_tenant_matmul.cu: a, b, out of LS then BE; order, ticket; dtype,
-# M_ls, M_be, K, N, n_order; stream
-DUAL_MATMUL_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
+# M_ls, M_be, K, N, n_order, wgmma; stream
+DUAL_MATMUL_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]
 # spt_gather.cu: src, dst, spt; n, row bytes, src rows, dst rows; stream
 SPT_ARGTYPES = [_P] * 3 + [_L] * 4 + [_P]
 # ssd_scan.cu: q, k, v, log_w, y; dtype, wdtype, B, T, H, K, P, L;
@@ -52,7 +52,7 @@ ENTRIES = {
     "flash_attention": {"sgdrc_flash_attention": (FLASH_ARGTYPES, _I)},
     "dual_tenant_attention": {
         "sgdrc_dual_tenant_attention": (DUAL_ATTENTION_ARGTYPES, _I),
-        "sgdrc_flash_tile_rows": ([_I], _I)},
+        "sgdrc_flash_tile_rows": ([_I, _I], _I)},
     "dual_tenant_matmul": {
         "sgdrc_dual_tenant_matmul": (DUAL_MATMUL_ARGTYPES, _I),
         "sgdrc_matmul_tile": ([], _I)},
@@ -184,6 +184,22 @@ def check_cuda(name: str, tensors: dict, dtype=None):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     return dev
+
+
+def aligned16(t):
+    """``t``, or a fresh copy of it when its data does not start on a
+    16-byte boundary (TMA reads only from such addresses)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+#: the tile bodies of the kernels that have two: tensor cores, CUDA cores
+ROUTES = ("wgmma", "simt")
+
+
+def count_launch(fn, route: str):
+    """Count one launch of the wrapper ``fn`` on ``route``."""
+    fn.launches += 1
+    fn.routes[route] += 1
 
 
 HEAD_DIMS = (32, 64, 128)

@@ -51,4 +51,18 @@ cudaError_t with_dtype(int dtype, F&& f) {
   }
 }
 
+// As with_dtype, for the CUDA-core bodies whose bf16 case runs on the
+// tensor cores instead: f32 and f16 only, bf16 is refused.
+template <typename F>
+cudaError_t with_f32_or_f16(int dtype, F&& f) {
+  switch (dtype) {
+    case 0:
+      return f(Tag<float>{});
+    case 2:
+      return f(Tag<__half>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace sgdrc

@@ -11,18 +11,20 @@
 // order; the quota is about start order only (no SM masking, as the JAX
 // package has none). A unit is one (tenant, b, h, query tile), decoded from
 // its row r as (r / (H * nq), (r / nq) % H, r % nq) with nq = ceil(S / BQ),
-// and runs flash_core.cuh's tile with causal = true, no window, no softcap:
-// the very code of flash_attention.cu, so each tenant's output equals
-// flash_attention's bit for bit and does not depend on sm_be.
+// and runs the tile body of flash_attention.cu's route with causal = true,
+// no window, no softcap: the very code of flash_attention.cu, so each
+// tenant's output equals flash_attention's bit for bit and does not depend
+// on sm_be. The route (`wgmma`: bf16 on flash_wgmma.cuh's tensor-core body;
+// else flash_core.cuh's CUDA-core body) fixes BQ, the block size and the
+// shared memory (flash::launch), and the wrapper schedules over the
+// route's BQ (sgdrc_flash_tile_rows).
 //
 // What bounds it on the card: operations, as flash_attention (4 * D flops
 // per visible causal (query, key) pair, both tenants together).
 //
 // order: int32 [2 * n_units] of (owner, row) pairs, owner 0 = LS, 1 = BE;
 // ticket: one int32, zero at launch.
-#include <algorithm>
-
-#include "flash_core.cuh"
+#include "flash_wgmma.cuh"
 
 namespace sgdrc {
 namespace flash {
@@ -35,6 +37,17 @@ struct DualArgs {
   float scale;
 };
 
+// The next unit's index, the same for every thread of the block; the
+// second barrier also ends the block's use of shared memory for the last
+// unit.
+__device__ __forceinline__ int next_unit(int* ticket, int* unit_s) {
+  if (threadIdx.x == 0) *unit_s = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int t = *unit_s;
+  __syncthreads();  // every thread has read unit_s before it is reused
+  return t;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) dual_kernel(DualArgs a) {
   extern __shared__ float smem[];
@@ -42,10 +55,7 @@ __global__ void __launch_bounds__(kThreads) dual_kernel(DualArgs a) {
   const int S = a.ls.S, H = a.ls.H;
   const int nq = (S + Tile<D>::BQ - 1) / Tile<D>::BQ;
   while (true) {
-    if (threadIdx.x == 0) unit_s = atomicAdd(a.ticket, 1);
-    __syncthreads();
-    const int t = unit_s;
-    __syncthreads();  // every thread has read unit_s before it is reused
+    const int t = next_unit(a.ticket, &unit_s);
     if (t >= a.n_units) break;
     const bool be = a.order[2 * t] != 0;
     const int r = a.order[2 * t + 1];
@@ -58,57 +68,113 @@ __global__ void __launch_bounds__(kThreads) dual_kernel(DualArgs a) {
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1) dual_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_ls,
+    const __grid_constant__ CUtensorMap k_ls,
+    const __grid_constant__ CUtensorMap v_ls,
+    const __grid_constant__ CUtensorMap q_be,
+    const __grid_constant__ CUtensorMap k_be,
+    const __grid_constant__ CUtensorMap v_be, void* out_ls, void* out_be,
+    const int* order, int* ticket, int n_units, int S, int H, int Hkv,
+    float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int unit_s;
+  uint8_t* smem = sgdrc::hopper::align1024(smem_raw);
+  wg::init<D>(smem);
+  const int nq = (S + wg::BQ - 1) / wg::BQ;
+  wg::Pipe pipe;
+  while (true) {
+    const int t = next_unit(ticket, &unit_s);
+    if (t >= n_units) break;
+    const bool be = order[2 * t] != 0;
+    const int r = order[2 * t + 1];
+    const int b = r / (H * nq), h = (r / nq) % H, qi = r % nq;
+    const wg::Maps x{be ? &q_be : &q_ls, be ? &k_be : &k_ls,
+                     be ? &v_be : &v_ls, be ? out_be : out_ls, S, H, Hkv};
+    wg::tile<D>(x, b, h, qi * wg::BQ, true, 0, 0.f, scale, smem, pipe);
+  }
+}
+
 }  // namespace flash
 }  // namespace sgdrc
 
-// Query rows per work unit for head dim D (0 if D is not supported): the
-// wrapper builds the schedule over tiles of this height.
-extern "C" int sgdrc_flash_tile_rows(int D) {
+// Query rows per work unit for head dim D on the route (`wgmma` 1: the
+// bf16 tensor-core body; 0: the CUDA-core body), 0 if D is not supported:
+// the wrapper builds the schedule over tiles of this height.
+extern "C" int sgdrc_flash_tile_rows(int D, int wgmma) {
   using namespace sgdrc::flash;
-  switch (D) {
-    case 64:
-      return Tile<64>::BQ;
-    case 128:
-      return Tile<128>::BQ;
-    case 256:
-      return Tile<256>::BQ;
-    default:
-      return 0;
-  }
+  int rows = 0;
+  with_head_dim(D, [&](auto dim) {
+    rows = launch<decltype(dim)::value>(wgmma != 0).rows;
+    return cudaSuccess;
+  });
+  return rows;
 }
 
 extern "C" int sgdrc_dual_tenant_attention(
     const void* q_ls, const void* k_ls, const void* v_ls, void* out_ls,
     const void* q_be, const void* k_be, const void* v_be, void* out_be,
-    const void* order, void* ticket, int dtype, int S, int H, int Hkv, int D,
-    int n_units, float scale, void* stream) {
+    const void* order, void* ticket, int dtype, int B_ls, int B_be, int S,
+    int H, int Hkv, int D, int n_units, int wgmma, float scale,
+    void* stream) {
   using namespace sgdrc::flash;
   if (n_units == 0 || S == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ord = static_cast<const int*>(order);
+  int* tk = static_cast<int*>(ticket);
+  if (wgmma) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_head_dim(D, [&](auto dim) {
+      constexpr int kD = decltype(dim)::value;
+      constexpr Launch L = launch<kD>(true);
+      // a tenant with no rows never runs a unit: it borrows the other's maps
+      const bool has_ls = B_ls > 0, has_be = B_be > 0;
+      const void* bases[6] = {has_ls ? q_ls : q_be, has_ls ? k_ls : k_be,
+                              has_ls ? v_ls : v_be, has_be ? q_be : q_ls,
+                              has_be ? k_be : k_ls, has_be ? v_be : v_ls};
+      const int batch[2] = {has_ls ? B_ls : B_be, has_be ? B_be : B_ls};
+      CUtensorMap maps[6];
+      for (int i = 0; i < 6; ++i) {
+        const bool is_q = i % 3 == 0;
+        cudaError_t err = wg::make_heads_map(
+            &maps[i], bases[i], batch[i / 3], S, is_q ? H : Hkv, kD,
+            is_q ? wg::BQ : wg::Tile<kD>::BK);
+        if (err != cudaSuccess) return err;
+      }
+      auto kernel = dual_wgmma_kernel<kD>;
+      cudaError_t err = allow_smem(kernel, L.smem);
+      if (err != cudaSuccess) return err;
+      int blocks = 0;
+      err = sgdrc::hopper::resident_blocks(kernel, L.threads, L.smem, n_units,
+                                           &blocks);
+      if (err != cudaSuccess) return err;
+      kernel<<<blocks, L.threads, L.smem, st>>>(
+          maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], out_ls,
+          out_be, ord, tk, n_units, S, H, Hkv, scale);
+      return cudaGetLastError();
+    }));
+  }
   DualArgs a{{q_ls, k_ls, v_ls, out_ls, S, H, Hkv},
              {q_be, k_be, v_be, out_be, S, H, Hkv},
-             static_cast<const int*>(order),
-             static_cast<int*>(ticket),
+             ord,
+             tk,
              n_units,
              scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(sgdrc::with_dtype(dtype, [&](auto tag) {
+  return static_cast<int>(sgdrc::with_f32_or_f16(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
     return with_head_dim(D, [&](auto dim) {
       constexpr int kD = decltype(dim)::value;
-      constexpr int bytes = smem_floats<kD>() * sizeof(float);
+      constexpr Launch L = launch<kD>(false);
       auto kernel = dual_kernel<T, kD>;
-      cudaError_t err = allow_smem(kernel, bytes);
+      cudaError_t err = allow_smem(kernel, L.smem);
       if (err != cudaSuccess) return err;
-      int dev = 0, sms = 0, per_sm = 0;
-      if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      int blocks = 0;
+      err = sgdrc::hopper::resident_blocks(kernel, L.threads, L.smem, n_units,
+                                           &blocks);
       if (err != cudaSuccess) return err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, bytes);
-      if (err != cudaSuccess) return err;
-      const int blocks = std::min(n_units, std::max(1, sms * per_sm));
-      kernel<<<blocks, kThreads, bytes, st>>>(a);
+      kernel<<<blocks, L.threads, L.smem, st>>>(a);
       return cudaGetLastError();
     });
   }));

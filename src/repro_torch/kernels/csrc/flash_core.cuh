@@ -1,5 +1,7 @@
-// The tile body of GQA self-attention, shared by flash_attention.cu and
-// dual_tenant_attention.cu.
+// The CUDA-core tile body of GQA self-attention (the "simt" route: f32 and
+// f16), shared by flash_attention.cu and dual_tenant_attention.cu; bf16
+// takes the tensor-core body of flash_wgmma.cuh (the "wgmma" route), which
+// computes the same function.
 //
 // Replaces the Pallas online-softmax bodies of
 //   src/repro/kernels/flash_attention.py       (_kernel, flash_attention)
@@ -29,10 +31,16 @@
 //
 // What bounds it on the card: operations. A tile does 4 * D flops for each
 // (query, key) pair it visits, from BQ + BK rows loaded once into shared
-// memory. This is the simple form: f32 FMAs on CUDA cores with a register
-// tile of RM query rows by CN keys (scores) and RM rows by DN head dims
-// (accumulator) per thread, no tensor cores, no TMA, no pipelining of the
-// next tile's loads (later work).
+// memory; at the H100's 295 bf16 flops a byte, that is the tensor cores'
+// 989 TFLOP/s, not HBM. Per route:
+//   simt (this body): f32 FMAs on CUDA cores, bound by their 67 TFLOP/s
+//   and by shared-memory loads (2-3 FMAs a load), with a register tile of
+//   RM query rows by CN keys (scores) and RM rows by DN head dims
+//   (accumulator) per thread. It stays for f32, whose 2e-5 tolerance TF32
+//   tensor cores would break, and for f16.
+//   wgmma (flash_wgmma.cuh): both products on the tensor cores in bf16 with
+//   f32 accumulators, fed by TMA through a two-stage ring, 128 query rows
+//   sharing each K/V tile.
 //
 // Block: 128 threads as a 16 x 8 grid (ty, tx). Thread (ty, tx) owns query
 // rows ty + 16 i, keys tx + 8 j of the score tile and head dims tx + 8 jj of

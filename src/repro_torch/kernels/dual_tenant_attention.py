@@ -11,10 +11,12 @@ with the same arguments and result: q_* [B*,S,H,D], k_*/v_* [B*,S,Hkv,D]
 Work units are (tenant, b, h, query tile) in the order of
 :func:`repro_torch.kernels.dual_tenant_matmul._schedule` (``sm_be`` and
 ``round_tiles`` as in the reference), over the kernel's own query tile,
-which is also ``flash_attention``'s (so ``block_q`` and ``block_k`` are kept
-for the signature only). The wrapper uploads the order as int32 (owner,
-row) pairs, cached per shape and quota; a persistent grid takes units from
-an atomic ticket in that order. Every unit runs the very tile code of
+which is also ``flash_attention``'s on the same route
+(:func:`repro_torch.kernels.flash_attention.route`: bf16 runs the
+tensor-core body with 128-row tiles, f32 and f16 the CUDA-core body), so
+``block_q`` and ``block_k`` are kept for the signature only. The wrapper
+uploads the order as int32 (owner, row) pairs, cached per shape and quota;
+a persistent grid takes units from an atomic ticket in that order. Every unit runs the very tile code of
 ``flash_attention``, so each output equals ``flash_attention(causal=True)``
 on that tenant bit for bit, whatever ``sm_be`` is.
 
@@ -22,7 +24,8 @@ What bounds it on the card is operations, as flash attention.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain version. The wrapper counts its launches in
-``dual_tenant_attention.launches``.
+``dual_tenant_attention.launches``, and by route in
+``dual_tenant_attention.routes``.
 """
 from __future__ import annotations
 
@@ -30,16 +33,18 @@ import functools
 
 import torch
 
-from ._build import DTYPE_CODES, check_cuda, check_launch, entry, stream_of
+from ._build import (DTYPE_CODES, ROUTES, aligned16, check_cuda,
+                     check_launch, count_launch, entry, stream_of)
 from .dual_tenant_matmul import schedule_order
-from .flash_attention import check_heads
+from .flash_attention import check_heads, route
 
 
 @functools.lru_cache(maxsize=None)
-def tile_rows(D: int) -> int:
+def tile_rows(D: int, way: str) -> int:
     """Query rows of one work unit (the flash kernels' query tile) for head
-    dim ``D``."""
-    rows = entry("dual_tenant_attention", "sgdrc_flash_tile_rows")(D)
+    dim ``D`` on route ``way``."""
+    rows = entry("dual_tenant_attention", "sgdrc_flash_tile_rows")(
+        D, int(way == "wgmma"))
     if rows <= 0:
         raise ValueError(f"dual_tenant_attention: unsupported head dim {D}")
     return rows
@@ -64,7 +69,11 @@ def dual_tenant_attention(q_ls, k_ls, v_ls, q_be, k_be, v_be, *, sm_be=0.3,
         raise ValueError(f"{name}: tenants must share S, H, Hkv and D: "
                          f"{tuple(q_ls.shape)} {tuple(k_ls.shape)} vs "
                          f"{tuple(q_be.shape)} {tuple(k_be.shape)}")
-    nq = -(-S // tile_rows(D))
+    way = route(q_ls.dtype)
+    if way == "wgmma":
+        q_ls, k_ls, v_ls, q_be, k_be, v_be = (
+            aligned16(t) for t in (q_ls, k_ls, v_ls, q_be, k_be, v_be))
+    nq = -(-S // tile_rows(D, way))
     order = schedule_order(B_ls * H * nq, B_be * H * nq, float(sm_be),
                            int(round_tiles), dev)
     o_ls, o_be = torch.empty_like(q_ls), torch.empty_like(q_be)
@@ -72,11 +81,13 @@ def dual_tenant_attention(q_ls, k_ls, v_ls, q_be, k_be, v_be, *, sm_be=0.3,
     err = entry(name)(
         q_ls.data_ptr(), k_ls.data_ptr(), v_ls.data_ptr(), o_ls.data_ptr(),
         q_be.data_ptr(), k_be.data_ptr(), v_be.data_ptr(), o_be.data_ptr(),
-        order.data_ptr(), ticket.data_ptr(), DTYPE_CODES[q_ls.dtype], S, H,
-        Hkv, D, order.numel() // 2, float(D ** -0.5), stream_of(dev))
+        order.data_ptr(), ticket.data_ptr(), DTYPE_CODES[q_ls.dtype], B_ls,
+        B_be, S, H, Hkv, D, order.numel() // 2, int(way == "wgmma"),
+        float(D ** -0.5), stream_of(dev))
     check_launch(name, err)
-    dual_tenant_attention.launches += 1
+    count_launch(dual_tenant_attention, way)
     return o_ls, o_be
 
 
 dual_tenant_attention.launches = 0
+dual_tenant_attention.routes = dict.fromkeys(ROUTES, 0)

@@ -15,11 +15,17 @@ them.
 
 What bounds it on the card is operations (2 * M * K * N). The kernel is a
 tiled GEMM written out in CUDA, not ``torch.matmul``: the product is the
-work the TPU kernel's own body does.
+work the TPU kernel's own body does. :func:`route` picks its body before
+the launch: ``"wgmma"`` (tensor cores, TMA-fed) for bf16 whose K and N are
+multiples of 8, so that every row stride TMA reads is a multiple of 16
+bytes; ``"simt"`` (f32 FMAs on CUDA cores) for f32, f16, and bf16 of any
+other K or N. A launch that fails raises; nothing retries on the other
+route.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain version. The wrapper counts its launches in
-``dual_tenant_matmul.launches``.
+``dual_tenant_matmul.launches``, and by route in
+``dual_tenant_matmul.routes``.
 """
 from __future__ import annotations
 
@@ -27,7 +33,14 @@ import functools
 
 import torch
 
-from ._build import DTYPE_CODES, check_cuda, check_launch, entry, stream_of
+from ._build import (DTYPE_CODES, ROUTES, aligned16, check_cuda,
+                     check_launch, count_launch, entry, stream_of)
+
+def route(dtype, K: int, N: int) -> str:
+    """The GEMM body a launch takes: ``"wgmma"`` for bf16 with K > 0 and K
+    and N multiples of 8, ``"simt"`` otherwise."""
+    ok = dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+    return "wgmma" if ok else "simt"
 
 
 def _schedule(n_ls: int, n_be: int, sm_be: float, round_tiles: int = 8):
@@ -80,7 +93,8 @@ def schedule_order(n_ls: int, n_be: int, sm_be: float, round_tiles: int,
 
 @functools.lru_cache(maxsize=None)
 def tile_m() -> int:
-    """Rows of one tile row, the unit the schedule orders."""
+    """Rows of one tile row, the unit the schedule orders (128 on both
+    routes)."""
     return entry("dual_tenant_matmul", "sgdrc_matmul_tile")()
 
 
@@ -100,6 +114,10 @@ def dual_tenant_matmul(a_ls, b_ls, a_be, b_be, *, sm_be=0.3, block_m=128,
         raise ValueError(f"{name}: need a_* [M*, K] and b_* [K, N], got "
                          f"{tuple(a_ls.shape)} {tuple(b_ls.shape)} "
                          f"{tuple(a_be.shape)} {tuple(b_be.shape)}")
+    way = route(a_ls.dtype, K, N)
+    if way == "wgmma":
+        a_ls, b_ls, a_be, b_be = (aligned16(t) for t in (a_ls, b_ls, a_be,
+                                                          b_be))
     tm = tile_m()
     order = schedule_order(-(-m_ls // tm), -(-m_be // tm), float(sm_be), 8,
                            dev)
@@ -110,10 +128,11 @@ def dual_tenant_matmul(a_ls, b_ls, a_be, b_be, *, sm_be=0.3, block_m=128,
         a_ls.data_ptr(), b_ls.data_ptr(), o_ls.data_ptr(), a_be.data_ptr(),
         b_be.data_ptr(), o_be.data_ptr(), order.data_ptr(),
         ticket.data_ptr(), DTYPE_CODES[a_ls.dtype], m_ls, m_be, K, N,
-        order.numel() // 2, stream_of(dev))
+        order.numel() // 2, int(way == "wgmma"), stream_of(dev))
     check_launch(name, err)
-    dual_tenant_matmul.launches += 1
+    count_launch(dual_tenant_matmul, way)
     return o_ls, o_be
 
 
 dual_tenant_matmul.launches = 0
+dual_tenant_matmul.routes = dict.fromkeys(ROUTES, 0)

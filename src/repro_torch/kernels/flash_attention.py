@@ -8,24 +8,38 @@ sees key t when ``t <= s`` (causal) and ``t > s - window``, and ``softcap``
 caps the scaled scores as ``c * tanh(s / c)`` before the mask.
 
 What bounds it on the card is operations: 4 * D flops for each visible
-(query, key) pair against a few bytes each. The kernel
-(``csrc/flash_core.cuh``) keeps one query tile in shared memory, streams
-key tiles past it with an f32 online softmax, and visits only the key tiles
-between the tile's first window start and its causal diagonal. Its tiles are
-its own, by head dim (64, 128 or 256), so ``block_q`` and ``block_k`` are
-kept for the reference's signature only, and S need not divide by them.
+(query, key) pair against a few bytes each. Both tile bodies keep one
+query tile on chip, stream key tiles past it with an f32 online softmax,
+and visit only the key tiles between the tile's first window start and its
+causal diagonal. :func:`route` picks the body before the launch:
+``"wgmma"`` for bf16 (``csrc/flash_wgmma.cuh``: TMA loads, both products on
+the tensor cores with f32 accumulation), ``"simt"`` for f32 and f16
+(``csrc/flash_core.cuh``: f32 FMAs on CUDA cores; TF32 would break the f32
+tolerance). A launch that fails raises; nothing retries on the other route.
+The tiles are the kernel's own, by route and head dim (64, 128 or 256), so
+``block_q`` and ``block_k`` are kept for the reference's signature only,
+and S need not divide by them.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to
 :func:`repro_torch.kernels.ref.ref_attention`. The wrapper counts its
-launches in ``flash_attention.launches``.
+launches in ``flash_attention.launches``, and by route in
+``flash_attention.routes``.
 """
 from __future__ import annotations
 
 import torch
 
-from ._build import DTYPE_CODES, check_cuda, check_launch, entry, stream_of
+from ._build import (DTYPE_CODES, ROUTES, aligned16, check_cuda,
+                     check_launch, count_launch, entry, stream_of)
 
 HEAD_DIMS = (64, 128, 256)
+
+
+def route(dtype) -> str:
+    """The tile body a launch takes: ``"wgmma"`` (tensor cores) for bf16,
+    ``"simt"`` (CUDA cores) for f32 and f16. Both take every head dim in
+    ``HEAD_DIMS`` (:func:`check_heads` refuses the others)."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def check_heads(name, q, k, v):
@@ -53,15 +67,20 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     dev = check_cuda("flash_attention", {"q": q, "k": k, "v": v}, q.dtype)
     check_heads("flash_attention", q, k, v)
     B, S, H, D = q.shape
+    way = route(q.dtype)
+    if way == "wgmma":
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     err = entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPE_CODES[q.dtype], B, S, H, k.shape[2], D, int(bool(causal)),
-        0 if window is None else int(window), float(D ** -0.5),
-        0.0 if softcap is None else float(softcap), stream_of(dev))
+        0 if window is None else int(window), int(way == "wgmma"),
+        float(D ** -0.5), 0.0 if softcap is None else float(softcap),
+        stream_of(dev))
     check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    count_launch(flash_attention, way)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(ROUTES, 0)

@@ -39,9 +39,18 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_counts() -> dict:
+    """Launches by route (``"wgmma"`` or ``"simt"``) of the wrappers that
+    have two tile bodies."""
+    return {name: dict(fn.routes) for name, fn in KERNELS.items()
+            if hasattr(fn, "routes")}
+
+
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def _on_cpu(t) -> bool:

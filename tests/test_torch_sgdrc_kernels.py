@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from repro_torch.core import coloring
+from repro_torch.kernels import dual_tenant_matmul as dtm
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dual_tenant_matmul import _schedule
 
@@ -353,6 +355,46 @@ def test_cpu_path_counts_no_launch():
     assert sum(ops.launch_counts().values()) == 0
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
+    ("bfloat16", 256, "wgmma"), ("float32", 128, "simt"),
+    ("float16", 64, "simt"), ("bfloat16", 32, None)])
+def test_flash_route(dtype, D, want):
+    """bf16 takes the tensor-core body at every head dim the kernels take;
+    f32 and f16 keep the CUDA-core body; any other head dim is refused
+    before a route is picked (``want`` None)."""
+    dt = getattr(torch, dtype)
+    q, kv = torch.zeros(1, 4, 2, D, dtype=dt), torch.zeros(1, 4, 1, D,
+                                                            dtype=dt)
+    if want is None:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.check_heads("flash_attention", q, kv, kv)
+    else:
+        fa.check_heads("flash_attention", q, kv, kv)
+        assert fa.route(dt) == want
+
+
+@pytest.mark.parametrize("dtype,K,N,want", [
+    ("bfloat16", 2048, 6144, "wgmma"), ("bfloat16", 72, 200, "wgmma"),
+    ("bfloat16", 128, 128, "wgmma"), ("bfloat16", 70, 200, "simt"),
+    ("bfloat16", 72, 201, "simt"), ("bfloat16", 0, 64, "simt"),
+    ("float32", 2048, 6144, "simt"), ("float16", 64, 64, "simt")])
+def test_matmul_route(dtype, K, N, want):
+    """The tensor-core matmul needs bf16 and 16-byte row strides (K and N
+    multiples of 8); every other shape and type takes the CUDA-core body."""
+    assert dtm.route(getattr(torch, dtype), K, N) == want
+
+
+def test_reset_clears_route_counts():
+    fa.flash_attention.routes["wgmma"] = 3
+    ops.reset_launch_counts()
+    assert all(n == 0 for r in ops.route_counts().values()
+               for n in r.values())
+    assert set(ops.route_counts()) == {"flash_attention",
+                                       "dual_tenant_attention",
+                                       "dual_tenant_matmul"}
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -372,6 +414,19 @@ def _cuda_qkv(cuda, seed, B, S, H, Hkv, D, dtype):
             for h in (H, Hkv, Hkv)]
 
 
+# Beside the elementwise tolerance, which at long S is about the size of a
+# late row's output: each (batch row, head)'s relative L2 error over the
+# rows [S/2, S), as chip_smoke.py's phase 7 holds it.
+LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _assert_late_rows(got, want, dtype):
+    h = want.shape[1] // 2
+    d, w = got[:, h:].float() - want[:, h:].float(), want[:, h:].float()
+    rel = (d.square().sum((1, 3)).sqrt() / w.square().sum((1, 3)).sqrt())
+    assert rel.max().item() <= LATE_REL_TOL[dtype], rel.max().item()
+
+
 @pytest.mark.cuda
 class TestCudaKernels:
     """Each kernel on the card vs ``kernels.ref`` on the same tensors
@@ -385,13 +440,17 @@ class TestCudaKernels:
     def test_flash(self, cuda, dtype, D, causal, window, softcap):
         # S = 200 is a multiple of no tile: the ragged edge is masked
         q, k, v = _cuda_qkv(cuda, D, 2, 200, 4, 2, D, dtype)
+        way = "wgmma" if dtype == "bfloat16" else "simt"
+        before = fa.flash_attention.routes[way]
         got = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
+        assert fa.flash_attention.routes[way] == before + 1
         want = ref.ref_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
         tol = {"float32": 2e-5, "bfloat16": 3e-2}[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+        _assert_late_rows(got, want, dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("D", [64, 128, 256])
@@ -401,25 +460,39 @@ class TestCudaKernels:
         t2 = _cuda_qkv(cuda, 2, 3, 192, 4, 2, D, dtype)
         w1 = ops.flash_attention(*t1, causal=True)
         w2 = ops.flash_attention(*t2, causal=True)
+        way = "wgmma" if dtype == "bfloat16" else "simt"
+        routes = ops.route_counts()
         for sm_be in (0.1, 0.5, 0.9):
             o1, o2 = ops.dual_tenant_attention(*t1, *t2, sm_be=sm_be)
             assert torch.equal(o1, w1) and torch.equal(o2, w2), sm_be
+        assert ops.route_counts()["dual_tenant_attention"][way] == \
+            routes["dual_tenant_attention"][way] + 3
         tol = {"float32": 2e-5, "bfloat16": 3e-2}[dtype]
-        torch.testing.assert_close(
-            w2.float(), ref.ref_attention(*t2, causal=True).float(),
-            rtol=tol, atol=tol)
+        want = ref.ref_attention(*t2, causal=True)
+        torch.testing.assert_close(w2.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        _assert_late_rows(w2, want, dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("m_ls,m_be,K,N", [(128, 256, 128, 128),
-                                               (100, 300, 72, 200)])
+                                               (100, 300, 72, 200),
+                                               (100, 300, 70, 200),
+                                               (0, 130, 64, 8)])
     def test_dual_matmul(self, cuda, dtype, m_ls, m_be, K, N):
+        """Aligned ragged bf16 (K 72, N 200) on the tensor cores, K 70 on
+        the CUDA cores; an empty LS tenant on either."""
         g = torch.Generator(device=cuda).manual_seed(3)
         dt = getattr(torch, dtype)
         a_ls, a_be = (torch.randn(m, K, generator=g, device=cuda).to(dt)
                       for m in (m_ls, m_be))
         b_ls, b_be = (torch.randn(K, N, generator=g, device=cuda).to(dt)
                       for _ in range(2))
+        way = dtm.route(dt, K, N)
+        assert way == ("wgmma" if dtype == "bfloat16" and K % 8 == 0
+                       else "simt")
+        before = dtm.dual_tenant_matmul.routes[way]
         got = ops.dual_tenant_matmul(a_ls, b_ls, a_be, b_be, sm_be=0.3)
+        assert dtm.dual_tenant_matmul.routes[way] == before + 1
         want = ref.ref_dual_tenant_matmul(a_ls, b_ls, a_be, b_be)
         # bf16: one output rounding apart (2^-7 relative)
         rtol = 1e-5 if dtype == "float32" else 2 ** -7
