@@ -11,8 +11,17 @@ non-zero:
              bf16 and f32, at the two head shapes of the engine phase
              (qwen3-1.7b: H=16 Hkv=8 D=128; stablelm-1.6b: H=32 Hkv=32 D=64),
              with ragged positions, sentinel rows, unmapped page-table
-             entries, abort caps and Sq=1 prefill == decode; times each
-             kernel, its plain version and one PyTorch library call.
+             entries, abort caps and Sq=1 prefill == decode (per dtype);
+             both decode kernels also per (row, KV head) by a relative L2
+             over the rows that see >= 512 keys, against a planted fault (a
+             256-key span read twice) that must read above the limit, and
+             dense decode on a bshd copy equal to bhsd bit for bit; times
+             each kernel, its plain version and one PyTorch library call.
+             A decode call takes the host longer to enqueue than the device
+             to run, so the decode rows time the kernel and the library call
+             on the device from a CUDA graph of 20 calls (``device_ms``),
+             and print the host's enqueue time (``host_ms``) and the
+             back-to-back loop time beside it.
 4. model   — qwen3-1.7b at its published width (28 layers, bf16, random
              weights from the seed): one paged 256-token prefill_step for 4
              rows and 8 decode_steps, with use_flash on and off.
@@ -76,7 +85,16 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # few bf16 roundings (the output on each side, P once in the kernel); a key
 # tile dropped or read twice by ~sqrt(128 / n). Every run also measures a
 # planted fault of that kind and requires it above the limit.
+# Phase 3 holds both decode kernels to the same limits per (row, KV head)
+# over the rows that see >= 512 keys (outputs of ~sqrt(e / n) there too);
+# its planted fault is one 256-key span of a long row holding the span
+# before it, as a split read twice would give.
 LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Sq == 1 prefill against decode (rtol, atol): two kernel bodies that sum in
+# f32 in other orders. f32: the reference's 2e-6 (tests/test_kernels.py).
+# bf16: each rounds its f32 result once, so they land on the same or a
+# neighbouring bf16 value, at most 2^-7 of the value apart (as MATMUL_TOL).
+SQ1_TOL = {"float32": (2e-6, 2e-6), "bfloat16": (2 ** -7, 1e-4)}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -169,6 +187,35 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fn, iters=20, replays=5):
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed. Where enqueueing a call takes the host longer than
+    the device needs to run it (a decode step), ``cuda_ms`` measures the
+    host; the graph's replay does not wait on the host between calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (iters * replays)
+
+
 def host_ms(fn, iters=50):
     """Mean host time to enqueue ``fn`` (the wrapper's checks, its TMA
     tensor-map encoding and the launch), with nothing waited on."""
@@ -232,6 +279,23 @@ def _keys_seen(pos, Sq, window, abort=None):
     return kv, pairs
 
 
+def _rel_rows(got, want, rows, Hkv):
+    """Relative L2 error of ``got`` against ``want`` ([B, H, D]) per (row,
+    KV head) of ``rows``: [len(rows), Hkv]."""
+    d = (got.float() - want.float())[rows].reshape(len(rows), Hkv, -1)
+    w = want.float()[rows].reshape(len(rows), Hkv, -1)
+    return d.norm(dim=2) / w.norm(dim=2)
+
+
+def _planted_span(k, v, b, t0):
+    """Dense [B, S, Hkv, D] K/V with row b's keys [t0, t0 + 256) replaced by
+    the 256 before them: a split read twice."""
+    k2, v2 = k.clone(), v.clone()
+    k2[b, t0:t0 + 256], v2[b, t0:t0 + 256] = k[b, t0 - 256:t0], \
+        v[b, t0 - 256:t0]
+    return k2, v2
+
+
 def kernel_phase(torch, seed):
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import prefill_attention as kp_
@@ -255,12 +319,17 @@ def kernel_phase(torch, seed):
             tag = f"{model} {dname}"
 
             def rec(name, err, ms=None, plain_ms=None, lib_ms=None,
-                    bound=None):
+                    bound=None, host=None, loop=None):
                 log(f"  {name:24s} {tag:26s} max_abs_err={err:.3e}"
                     + ("" if ms is None else
-                       f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                       f" {'ms' if host is None else 'device_ms'}={ms:.4f} "
+                       f"plain_ms={plain_ms:.4f} "
                        f"library_ms={lib_ms:.4f} bound_ms={bound[0]:.4f}"
-                       f" ({bound[1]})"))
+                       f" ({bound[1]})")
+                    + ("" if host is None else
+                       f" host_ms={host:.4f} loop_ms={loop[0]:.4f} "
+                       f"library_loop_ms={loop[1]:.4f} of_bound="
+                       f"{bound[0] / ms:.3f} vs_library={ms / lib_ms:.3f}"))
                 require(err == err, f"{name} {tag}: NaN in the output")
                 if main and model == "qwen3-1.7b" and ms is not None:
                     results[name] = {"max_abs_err": err, "ms": ms,
@@ -276,6 +345,30 @@ def kernel_phase(torch, seed):
                             f"{err})")
                 return err
 
+            def late(name, out, want, pos, window, fault, fault_row):
+                """The late-row check: each (row, KV head) of the rows that
+                see >= 512 keys within LATE_REL_TOL, and the planted
+                fault's reading (its row's least) above it."""
+                lim = LATE_REL_TOL[dname]
+                rows = [b for b, p in enumerate(pos)
+                        if min(p, window - 1) + 1 >= 512]
+                sound = _rel_rows(out, want, rows, Hkv).max().item()
+                planted = _rel_rows(fault, want, [fault_row], Hkv).min() \
+                    .item()
+                log(f"  {name:24s} {tag:26s} rows >= 512 keys: relative L2 "
+                    f"{sound:.3e}, planted fault {planted:.3e} (limit {lim})")
+                require(sound <= lim, f"{name} {tag}: relative L2 {sound} "
+                                      f"over {lim}")
+                require(planted > lim, f"{name} {tag}: the late-row check "
+                                       f"misses a planted fault ({planted})")
+
+            def sq1(one, dec, what):
+                rtol, atol = SQ1_TOL[dname]
+                require(torch.allclose(one.float(), dec.float(), rtol=rtol,
+                                       atol=atol),
+                        f"Sq=1 {what} prefill != decode {tag} (max abs "
+                        f"{(one.float() - dec.float()).abs().max().item()})")
+
             # -- 1: paged decode --------------------------------------
             q, kpool, vpool, pt = _paged_case(
                 torch, gen, B, 1, H, Hkv, D, dtype, n_pages, P, dec_pos)
@@ -286,20 +379,29 @@ def kernel_phase(torch, seed):
             err = close(out, want, "decode_attention_paged")
             kdense = ref.gather_pages(kpool, pt)
             vdense = ref.gather_pages(vpool, pt)
+            fr = dec_pos.index(1777)     # the longest row with its own pages
+            late("decode_attention_paged", out, want, dec_pos, window,
+                 ref.ref_decode_attention(
+                     q1, *_planted_span(kdense, vdense, fr, 1024), posd), fr)
             kr = kdense.repeat_interleave(G, dim=2).transpose(1, 2)
             vr = vdense.repeat_interleave(G, dim=2).transpose(1, 2)
             mask = (torch.arange(window, device="cuda")[None, :]
                     <= posd[:, None])[:, None, None, :]
             kvk, pairs = _keys_seen(dec_pos, 1, window)
-            rec("decode_attention_paged", err,
-                cuda_ms(lambda: kd.decode_attention_paged(q1, kpool, vpool,
-                                                          pt, posd)),
+
+            def kern():
+                return kd.decode_attention_paged(q1, kpool, vpool, pt, posd)
+
+            def lib():
+                return F.scaled_dot_product_attention(q1[:, :, None], kr, vr,
+                                                      attn_mask=mask)
+            rec("decode_attention_paged", err, graph_ms(kern),
                 cuda_ms(lambda: ref.ref_decode_attention_paged(
                     q1, kpool, vpool, pt, posd), iters=5),
-                cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q1[:, :, None], kr, vr, attn_mask=mask)),
+                graph_ms(lib),
                 _bound_ms(kvk, B, 1, H, Hkv, D, q.element_size(), pairs,
-                          dname))
+                          dname),
+                host_ms(kern), (cuda_ms(kern), cuda_ms(lib)))
 
             # -- 2: paged chunked prefill, abort/progress ------------
             q, kpool, vpool, pt = _paged_case(
@@ -322,9 +424,7 @@ def kernel_phase(torch, seed):
                                               posp)
             dec = kd.decode_attention_paged(q[:, 0].contiguous(), kpool,
                                             vpool, pt, posp)
-            require(torch.allclose(one[:, 0].float(), dec.float(),
-                                   rtol=2e-6, atol=2e-6),
-                    f"Sq=1 paged prefill != decode {tag}")
+            sq1(one[:, 0], dec, "paged")
             kdense = ref.gather_pages(kpool, pt)
             vdense = ref.gather_pages(vpool, pt)
             kr = kdense.repeat_interleave(G, dim=2).transpose(1, 2)
@@ -358,10 +458,14 @@ def kernel_phase(torch, seed):
             want = ref.ref_decode_attention(q1, kc.transpose(1, 2),
                                             vc.transpose(1, 2), posd)
             err = close(out, want, "decode_attention")
-            out_s = kd.decode_attention(q1, kc.transpose(1, 2),
-                                        vc.transpose(1, 2), posd,
-                                        kv_layout="bshd")
+            ks, vs = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+            out_s = kd.decode_attention(q1, ks, vs, posd, kv_layout="bshd")
             require(torch.equal(out, out_s), f"bshd != bhsd {tag}")
+            fr = dpos.index(2047)
+            late("decode_attention", out, want, dpos, Smax,
+                 ref.ref_decode_attention(
+                     q1, *_planted_span(ks, vs, fr, 1024), posd), fr)
+            del ks, vs, out_s
             # a ragged window (not a multiple of any tile), scalar pos
             Sr = 1000
             out_r = kd.decode_attention(q1, kc[:, :, :Sr], vc[:, :, :Sr],
@@ -375,16 +479,21 @@ def kernel_phase(torch, seed):
             mask = (torch.arange(Smax, device="cuda")[None, :]
                     <= posd[:, None])[:, None, None, :]
             kvk, pairs = _keys_seen(dpos, 1, Smax)
-            rec("decode_attention", err,
-                cuda_ms(lambda: kd.decode_attention(q1, kc, vc, posd,
-                                                    kv_layout="bhsd")),
+
+            def kern():
+                return kd.decode_attention(q1, kc, vc, posd, kv_layout="bhsd")
+
+            def lib():
+                return F.scaled_dot_product_attention(q1[:, :, None], kr, vr,
+                                                      attn_mask=mask)
+            rec("decode_attention", err, graph_ms(kern),
                 cuda_ms(lambda: ref.ref_decode_attention(
                     q1, kc.transpose(1, 2), vc.transpose(1, 2), posd),
                     iters=5),
-                cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q1[:, :, None], kr, vr, attn_mask=mask)),
+                graph_ms(lib),
                 _bound_ms(kvk, Bd, 1, H, Hkv, D, q1.element_size(), pairs,
-                          dname))
+                          dname),
+                host_ms(kern), (cuda_ms(kern), cuda_ms(lib)))
 
             # -- 4: dense chunked prefill, abort/progress -------------
             ppos = [0, 300, Smax, 1792]
@@ -408,9 +517,7 @@ def kernel_phase(torch, seed):
             one = kp_.prefill_attention(q[:, :1], kc, vc, posp)
             dec = kd.decode_attention(q[:, 0].contiguous(), kc, vc, posp,
                                       kv_layout="bhsd")
-            require(torch.allclose(one[:, 0].float(), dec.float(),
-                                   rtol=2e-6, atol=2e-6),
-                    f"Sq=1 dense prefill != decode {tag}")
+            sq1(one[:, 0], dec, "dense")
             qt = q.transpose(1, 2)
             qpos = posp[:, None] + torch.arange(Sq, device="cuda")[None]
             mask = (torch.arange(Smax, device="cuda")[None, None, :]
@@ -443,7 +550,8 @@ def _profiler(torch):
 def _profile_summary(prof, wall_s, top=8):
     """Device time by kernel name in a profiled run, and its total as a
     share of ``wall_s``, the same work's wall time without the profiler
-    (the device-busy share)."""
+    (the device-busy share): the ``top`` kernels, and the decode kernel
+    wherever it ranks."""
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -461,8 +569,9 @@ def _profile_summary(prof, wall_s, top=8):
     busy = sum(r[0] for r in rows) / 1e6
     log(f"  profile: device busy {busy * 1e3:.1f} ms of {wall_s * 1e3:.1f} "
         f"ms unprofiled wall (share {busy / wall_s:.3f})")
-    for t, n, name in rows[:top]:
-        log(f"    {t / 1e3:9.3f} ms {n:6d}x {name[:90]}")
+    for i, (t, n, name) in enumerate(rows):
+        if i < top or "decode" in name:
+            log(f"    {t / 1e3:9.3f} ms {n:6d}x {name[:90]}")
 
 
 def model_phase(torch, seed):

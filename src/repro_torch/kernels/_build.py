@@ -27,9 +27,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# the one C signature every attention entry point shares (attention_core.cuh)
+# the C signature of the chunked-prefill entry points (attention_core.cuh)
 ATTENTION_ARGTYPES = ([_P] * 8 + [_I] * 10 + [_L] * 12
                       + [_F, _P])
+# decode_attention.cu: q, out, k, v, pos, page_table; dtype, B, H, Hkv, D,
+# heads_per_block, window, page_size, pt_stride, n_pages, split, cluster;
+# strides of q, out (b, h) and k, v (3 each); scale; stream
+DECODE_ARGTYPES = [_P] * 6 + [_I] * 12 + [_L] * 10 + [_F, _P]
 # flash_attention.cu: q, k, v, out; dtype, B, S, H, Hkv, D, causal, window,
 # wgmma (the route); scale, softcap; stream
 FLASH_ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _F, _P]
@@ -46,7 +50,7 @@ SPT_ARGTYPES = [_P] * 3 + [_L] * 4 + [_P]
 SSD_ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.POINTER(_L), _P]
 #: source -> {C symbol: (argtypes, restype)}; every source builds one library
 ENTRIES = {
-    "decode_attention": {"sgdrc_decode_attention": (ATTENTION_ARGTYPES, _I)},
+    "decode_attention": {"sgdrc_decode_attention": (DECODE_ARGTYPES, _I)},
     "prefill_attention": {
         "sgdrc_prefill_attention": (ATTENTION_ARGTYPES, _I)},
     "flash_attention": {"sgdrc_flash_attention": (FLASH_ARGTYPES, _I)},

@@ -1,8 +1,8 @@
-// Cached-context GQA attention for Hopper: one templated kernel body behind
-// the four entry points of decode_attention.cu and prefill_attention.cu.
+// Cached-context GQA attention for Hopper: the templated kernel body behind
+// the chunked-prefill entry points of prefill_attention.cu (decode has its
+// own split-K body, decode_attention.cu).
 //
-// Replaces the Pallas online-softmax bodies of
-//   src/repro/kernels/decode_attention.py  (_kernel, decode_attention[_paged])
+// Replaces the Pallas online-softmax body of
 //   src/repro/kernels/prefill_attention.py (_kernel, prefill_attention[_paged])
 //
 // What it computes. For batch row b and KV head h the query rows are the
@@ -234,7 +234,7 @@ int launch(const AttnArgs& a, int dtype, int D, void* stream) {
   }));
 }
 
-// One C signature for all four entry points (ctypes binds it once).
+// One C signature for the prefill entry points (ctypes binds it once).
 #define SGDRC_ATTENTION_ENTRY(NAME, ROWS)                                     \
   extern "C" int NAME(                                                        \
       const void* q, void* out, const void* k, const void* v,                 \
