@@ -27,9 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# the C signature of the chunked-prefill entry points (attention_core.cuh)
-ATTENTION_ARGTYPES = ([_P] * 8 + [_I] * 10 + [_L] * 12
-                      + [_F, _P])
+# prefill_attention.cu: q, out, k, v, pos, abort, progress, page_table;
+# dtype, B, Sq, H, Hkv, D, wgmma (the route), window, page_size, pt_stride,
+# n_pages; strides of q, out (b, s, h) and k, v (3 each); scale; stream
+ATTENTION_ARGTYPES = [_P] * 8 + [_I] * 11 + [_L] * 12 + [_F, _P]
 # decode_attention.cu: q, out, k, v, pos, page_table; dtype, B, H, Hkv, D,
 # heads_per_block, window, page_size, pt_stride, n_pages, split, cluster;
 # strides of q, out (b, h) and k, v (3 each); scale; stream
@@ -219,13 +220,14 @@ def _i32(x, shape, device, what):
 
 
 def launch_attention(name, q, out, k, v, pos, *, abort=None, progress=None,
-                     page_table=None, window, page_size=0):
-    """Launch ``sgdrc_<name>`` on the current stream. q/out: [B,Sq,H,D]
-    (any strides, D contiguous); k/v: [X,Hkv,S,D] views whose first three
-    axes are (batch row, kv head, key) for a dense cache or (page, kv head,
-    in-page offset) for a pool; pos/abort/progress: int32 [B]; page_table:
-    int32 [B,P]. Raises on anything the kernel does not take, and on a
-    non-zero ``cudaGetLastError`` after the launch."""
+                     page_table=None, window, page_size=0, wgmma=False):
+    """Launch ``sgdrc_<name>`` on the current stream, on the tensor-core
+    body when ``wgmma``. q/out: [B,Sq,H,D] (any strides, D contiguous);
+    k/v: [X,Hkv,S,D] views whose first three axes are (batch row, kv head,
+    key) for a dense cache or (page, kv head, in-page offset) for a pool;
+    pos/abort/progress: int32 [B]; page_table: int32 [B,P]. Raises on
+    anything the kernel does not take, and on a non-zero
+    ``cudaGetLastError`` after the launch."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: CUDA kernel called on {dev}")
@@ -255,7 +257,8 @@ def launch_attention(name, q, out, k, v, pos, *, abort=None, progress=None,
                         "page_table")
         pt_stride, n_pages = page_table.shape[1], k.shape[0]
     err = entry(name)(*ptrs, DTYPE_CODES[q.dtype], B, Sq, H, Hkv, D,
-                      int(window), int(page_size), pt_stride, n_pages,
+                      int(bool(wgmma)), int(window), int(page_size),
+                      pt_stride, n_pages,
                       q.stride(0), q.stride(1), q.stride(2),
                       out.stride(0), out.stride(1), out.stride(2),
                       k.stride(0), k.stride(1), k.stride(2),

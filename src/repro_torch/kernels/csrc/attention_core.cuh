@@ -1,6 +1,7 @@
-// Cached-context GQA attention for Hopper: the templated kernel body behind
-// the chunked-prefill entry points of prefill_attention.cu (decode has its
-// own split-K body, decode_attention.cu).
+// Cached-context GQA attention on CUDA cores: the kernel body of the "simt"
+// route of prefill_attention.cu (f32, f16, and bf16 at D 32; bf16 at D 64
+// and 128 takes the tensor-core body of prefill_wgmma.cuh, which computes
+// the same contract). Decode has its own split-K body, decode_attention.cu.
 //
 // Replaces the Pallas online-softmax body of
 //   src/repro/kernels/prefill_attention.py (_kernel, prefill_attention[_paged])
@@ -15,15 +16,15 @@
 // finite NEG_INF = -1e30, and the result is acc / max(l, 1e-30): a row that
 // sees no key comes out finite, never NaN.
 //
-// What bounds it on the card: the bytes of K and V read (decode and short
-// chunks do ~2 flops per byte, far below the H100's ~295 flops/byte ridge).
+// What bounds it on the card: the bytes of K and V read at short chunks,
+// the f32 FMAs at long ones (no tensor cores here).
 // The design reads only the keys a block needs: a row block stops at the
 // last position its rows may see (pos + min(last row, abort - 1)), never past
 // the row's window, so per-row traffic scales with the row's length and not
 // with Smax or the page-table width; a key tile is loaded once into shared
 // memory and used by every query row of the block (all G heads of one KV
-// head, and ROWS chunk rows at once in prefill). This is the simple, correct
-// form: no tensor cores, no TMA, no split over keys (later work).
+// head, and ROWS chunk rows at once). Key tiles sit at absolute positions
+// 0, 32, ..., so a row's bits do not depend on the rows beside it.
 //
 // Grid: (ceil(Sq*G / ROWS), Hkv, B); 128 threads. The TPU kernel's
 // sequential kv grid axis becomes the loop over key tiles inside the block.
@@ -205,77 +206,5 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
     }
   }
 }
-
-template <typename T, int ROWS>
-cudaError_t launch_typed(const AttnArgs& a, int D, cudaStream_t stream) {
-  const int G = a.H / a.Hkv;
-  const dim3 grid((a.Sq * G + ROWS - 1) / ROWS, a.Hkv, a.B);
-  switch (D) {
-    case 32:
-      attention_kernel<T, 32, ROWS><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    case 64:
-      attention_kernel<T, 64, ROWS><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    case 128:
-      attention_kernel<T, 128, ROWS><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-template <int ROWS>
-int launch(const AttnArgs& a, int dtype, int D, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_dtype(dtype, [&](auto tag) {
-    return launch_typed<typename decltype(tag)::type, ROWS>(a, D, s);
-  }));
-}
-
-// One C signature for the prefill entry points (ctypes binds it once).
-#define SGDRC_ATTENTION_ENTRY(NAME, ROWS)                                     \
-  extern "C" int NAME(                                                        \
-      const void* q, void* out, const void* k, const void* v,                 \
-      const void* pos, const void* abort_cap, void* progress,                 \
-      const void* page_table, int dtype, int B, int Sq, int H, int Hkv,       \
-      int D, int window, int page_size, int pt_stride, int n_pages,           \
-      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t o_sb, int64_t o_ss,   \
-      int64_t o_sh, int64_t k_s0, int64_t k_sh, int64_t k_ss, int64_t v_s0,   \
-      int64_t v_sh, int64_t v_ss, float scale, void* stream) {                \
-    sgdrc::AttnArgs a;                                                        \
-    a.q = q;                                                                  \
-    a.out = out;                                                              \
-    a.k = k;                                                                  \
-    a.v = v;                                                                  \
-    a.pos = static_cast<const int*>(pos);                                     \
-    a.abort = static_cast<const int*>(abort_cap);                             \
-    a.progress = static_cast<int*>(progress);                                 \
-    a.page_table = static_cast<const int*>(page_table);                       \
-    a.B = B;                                                                  \
-    a.Sq = Sq;                                                                \
-    a.H = H;                                                                  \
-    a.Hkv = Hkv;                                                              \
-    a.window = window;                                                        \
-    a.page_size = page_size;                                                  \
-    a.pt_stride = pt_stride;                                                  \
-    a.n_pages = n_pages;                                                      \
-    a.q_sb = q_sb;                                                            \
-    a.q_ss = q_ss;                                                            \
-    a.q_sh = q_sh;                                                            \
-    a.o_sb = o_sb;                                                            \
-    a.o_ss = o_ss;                                                            \
-    a.o_sh = o_sh;                                                            \
-    a.k_s0 = k_s0;                                                            \
-    a.k_sh = k_sh;                                                            \
-    a.k_ss = k_ss;                                                            \
-    a.v_s0 = v_s0;                                                            \
-    a.v_sh = v_sh;                                                            \
-    a.v_ss = v_ss;                                                            \
-    a.scale = scale;                                                          \
-    if (B == 0 || Sq == 0) return 0;                                          \
-    return sgdrc::launch<ROWS>(a, dtype, D, stream);                          \
-  }
 
 }  // namespace sgdrc

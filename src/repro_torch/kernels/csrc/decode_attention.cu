@@ -49,6 +49,7 @@
 #include <stdint.h>
 
 #include "dtypes.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -140,24 +141,10 @@ struct Widen<__half> {
   }
 };
 
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (no
-// byte of src is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// 16-byte cp.async, shared with the tensor-core kernels (hopper.cuh)
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 // Scores are kept in base 2 (q is scaled by log2 e), where the softmax's
 // exponential is one SFU instruction (exp2f). Every merge of softmax

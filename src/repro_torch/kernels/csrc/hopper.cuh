@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels (flash_wgmma.cuh,
-// dual_tenant_matmul.cu), written as inline PTX for sm_90a: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the bf16 wgmma shapes the
-// kernels issue, and the host-side encoding of TMA tensor maps.
+// prefill_wgmma.cuh, dual_tenant_matmul.cu; decode_attention.cu takes its
+// cp.async from here), written as inline PTX for sm_90a: mbarriers, TMA
+// tile loads, 16-byte cp.async into swizzled tiles, moving registers
+// between warpgroups, wgmma shared-memory descriptors and the bf16 wgmma
+// shapes the kernels use, and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory operands are 128-byte swizzled tiles as TMA writes them
 // with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), 8 rows to
@@ -110,6 +112,67 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// -- cp.async: 16-byte copies, each tracked by the thread that starts it ----
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (no
+// byte of src is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed.
+// noinc: the arrival counts against the count the barrier was initialised
+// with (one per thread that calls this for a phase).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory writes (cp.async, st.shared:
+// the generic proxy) before later reads by the async proxy (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk j of row r in a 128-byte-swizzled tile of
+// `rows` rows (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes, see the
+// top): 64-wide chunk j / 8 of the row axis starts at (j / 8) * rows * 128,
+// and 16-byte chunk c of row r sits at c ^ (r % 8) within its 128-byte row.
+__device__ __forceinline__ uint32_t sw128_offset(int rows, int r, int j) {
+  return static_cast<uint32_t>((j >> 3) * rows * 128 + r * 128 +
+                               (((j & 7) ^ (r & 7)) << 4));
+}
+
+// -- registers between warpgroups --------------------------------------------
+
+// Lower (dec) or raise (inc) this warpgroup's registers a thread to N; every
+// thread of the warpgroup executes it. A producer warpgroup gives registers
+// back so that the consumers' tiles fit.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // -- wgmma -----------------------------------------------------------------

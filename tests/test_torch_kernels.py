@@ -4,18 +4,21 @@ CPU: the plain PyTorch versions (what ``repro_torch.kernels.ops`` runs for
 CPU tensors) against the JAX kernels in interpret mode, on the same inputs
 made from a numpy seed, at the shapes of ``tests/test_kernels.py``: dense and
 paged decode and chunked prefill, ragged positions, non-dividing windows,
-the abort/progress protocol and Sq == 1 prefill == decode. Tolerances are the
-reference's: 2e-5 in f32, 3e-2 in bf16.
+the abort/progress protocol and Sq == 1 prefill == decode; chunked prefill
+split in two calls and cut at an abort cap against the whole chunk, and the
+route each dtype and head dim takes. Tolerances are the reference's: 2e-5 in
+f32, 3e-2 in bf16.
 
 The split-K decode kernel's plan (``kernels/decode_attention.py``): every
 visible key read once by the cluster's blocks for every row position and
 window, and the plan's split-then-merge algebra against the plain decode.
 
 CUDA (marked ``cuda``, skipped without a card): each CUDA kernel against its
-plain version on the card (f16 too for decode), decode's late-row relative
-L2, bshd == bhsd, determinism and batch invariance bit for bit, and the
-Sq == 1 prefill == decode check per dtype. The JAX reference is imported
-lazily so that this file also runs on a machine without JAX.
+plain version on the card (f16 too), on both prefill routes, with the
+late-row relative L2 of decode and prefill, bshd == bhsd, determinism and
+batch invariance bit for bit (and for prefill the abort prefix and the chunk
+split), and the Sq == 1 prefill == decode check per dtype. The JAX reference
+is imported lazily so that this file also runs on a machine without JAX.
 """
 import numpy as np
 import pytest
@@ -256,6 +259,80 @@ def test_prefill_attention_reduces_to_decode(jx):
     _close(a[:, 0], want)
 
 
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_prefill_route(dtype, D):
+    """bf16 at head dim 64 or 128 takes the tensor-core body; f32, f16 and
+    bf16 at head dim 32 the CUDA-core body."""
+    from repro_torch.kernels import prefill_attention as kp_
+    want = "wgmma" if dtype == "bfloat16" and D in (64, 128) else "simt"
+    assert kp_.route(getattr(torch, dtype), D) == want
+
+
+# The plain version against itself across chunkings: the same rows in
+# calls of other shapes, where PyTorch's CPU matmul may sum in another
+# order (an Sq == 1 call takes a matrix-vector product): f32 within the
+# reference's 2e-6 for two summation orders; bf16 within one output
+# rounding (2^-7 of the value, 1e-4 near zero).
+SPLIT_TOL = {"float32": (2e-6, 2e-6), "bfloat16": (2 ** -7, 1e-4)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_prefill_chunk_split_and_abort_prefix(jx, paged, dtype):
+    """A chunk split in two calls (rows [a, Sq) from a call at pos + a)
+    gives the whole chunk's rows, and the rows before an abort cap equal a
+    chunk of exactly that many tokens: the port's plain version against the
+    reference's kernels (interpret mode) on the same inputs, and each side
+    against its own whole chunk (the reference bit for bit, as its
+    tests/test_kernels.py asserts for the abort prefix)."""
+    jnp, jops = jx
+    B, Smax, Sq, H, Hkv, D, ps = 3, 256, 40, 4, 2, 64, 16
+    rng = np.random.default_rng(31)
+    q = _rand(rng, (B, Sq, H, D))
+    kc, vc = _rand(rng, (B, Smax, Hkv, D)), _rand(rng, (B, Smax, Hkv, D))
+    pos = np.asarray([0, 13, 150], np.int32)
+    if paged:
+        kp, vp, pt = _paged(rng, kc, vc, ps, 56)
+        kv = (kp, vp, pt)
+        jfn, tfn, kw = jops.prefill_attention_paged, \
+            ops.prefill_attention_paged, {}
+    else:
+        kv = (kc.transpose(0, 2, 1, 3).copy(), vc.transpose(0, 2, 1, 3).copy())
+        jfn, tfn, kw = jops.prefill_attention, ops.prefill_attention, \
+            {"block_k": 32}
+    jkv = [jnp.asarray(a) for a in kv]
+    jkv[:2] = [a.astype(getattr(jnp, dtype)) for a in jkv[:2]]
+    tkv = [torch.from_numpy(a) for a in kv]
+    tkv[:2] = [a.to(getattr(torch, dtype)) for a in tkv[:2]]
+    jq, tq = _both(jnp, q, dtype)
+    rtol, atol = SPLIT_TOL[dtype]
+
+    def run(rows, p, **extra):
+        return (jfn(jq[:, rows], *jkv, jnp.asarray(p), **kw, **extra),
+                tfn(tq[:, rows], *tkv, torch.from_numpy(p), **kw, **extra))
+
+    whole_j, whole_t = run(slice(None), pos)
+    _close(whole_t, whole_j, dtype)
+    for a in (1, 37):
+        part_j, part_t = run(slice(a, None), pos + a)
+        _close(part_t, part_j, dtype)
+        _close(part_t, np.asarray(whole_j)[:, a:], dtype)
+        torch.testing.assert_close(part_t, whole_t[:, a:], rtol=rtol,
+                                   atol=atol)
+    abort = np.asarray([3, Sq + 5, 0], np.int32)
+    (out_j, prog_j), (out_t, prog_t) = run(slice(None), pos,
+                                           abort=jnp.asarray(abort))
+    np.testing.assert_array_equal(prog_t.numpy(), np.asarray(prog_j))
+    small_j, small_t = run(slice(0, 3), pos)
+    np.testing.assert_array_equal(np.asarray(out_j)[0, :3],
+                                  np.asarray(small_j)[0])
+    _close(out_t[0, :3], np.asarray(small_j)[0], dtype)
+    torch.testing.assert_close(out_t[0, :3], small_t[0], rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(out_t[1], whole_t[1], rtol=rtol, atol=atol)
+
+
 # ---------------------------------------------------------------------------
 # the split-K decode kernel's plan (kernels/decode_attention.py), which the
 # CUDA kernel follows key for key
@@ -412,12 +489,17 @@ CUDA_TOL = {**TOL, "float16": 2e-3}
 # A sound kernel misses by its output rounding; a 256-key split read twice
 # or dropped by ~sqrt(256 / n) (chip_smoke.py measures such a fault).
 LATE_REL_TOL = {"float32": 1e-4, "float16": 2e-3, "bfloat16": 2e-2}
-# Sq == 1 prefill against decode: two kernel bodies that sum in f32 in other
-# orders. f32: the reference's 2e-6. Narrow types: each body rounds its f32
-# result once, so they agree to one output rounding (at most 2^-7 of the
-# value in bf16, 2^-10 in f16).
-SQ1_TOL = {"float32": (2e-6, 2e-6), "float16": (2 ** -10, 1e-4),
-           "bfloat16": (2 ** -7, 1e-4)}
+# Sq == 1 prefill against decode, elementwise (rtol, atol): two CUDA-core
+# bodies that sum in f32 in other orders. f32: the reference's 2e-6. f16:
+# each body rounds its f32 result once, so they agree to one output
+# rounding (at most 2^-10 of the value).
+SQ1_TOL = {"float32": (2e-6, 2e-6), "float16": (2 ** -10, 1e-4)}
+# bf16 prefill takes the tensor-core body, which rounds P to bf16 for P.V
+# while decode keeps P in f32: short rows' near-zero outputs miss one output
+# rounding elementwise (excess 2.2e-4 to 1.4e-3 on an H100, chip_smoke.py
+# phase 3), so the two are held per (row, KV head) by relative L2 (sound
+# 2.85e-3 to 4.22e-3 there, a planted 128-key tile fault 0.235 to 0.304).
+SQ1_REL_TOL = {"bfloat16": 2e-2}
 
 
 def _late_rows_close(got, want, pos, window, Hkv, dtype):
@@ -450,6 +532,60 @@ def _paged_pool(g, dev, dt, pos, H, Hkv, D, ps, P, n_pages):
         if need < P:
             pt[b, -1] = -1
     return q, kp, vp, pt.to(dev)
+
+
+def _prefill_case(g, dev, dt, pos, Sq, H, Hkv, D, window, paged, ps=16):
+    """q [B,Sq,H,D] and, for a window of ``window`` keys, a dense KV-major
+    cache (k, v) or a page pool (k, v, page table) in which each row's
+    pages through ``pos + Sq`` map to distinct random pages and the rest
+    are unmapped (the pool size), with one negative entry at the row's
+    end."""
+    B = len(pos)
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
+    if not paged:
+        return q, tuple(torch.randn(B, Hkv, window, D, generator=g,
+                                    device=dev).to(dt) for _ in range(2))
+    P = window // ps
+    n_pages = B * P + 8
+    kp, vp = (torch.randn(n_pages, Hkv, ps, D, generator=g,
+                          device=dev).to(dt) for _ in range(2))
+    perm = torch.randperm(n_pages, generator=g, device=dev).cpu()
+    pt = torch.full((B, P), n_pages, dtype=torch.int32)
+    used = 0
+    for b, p in enumerate(pos):
+        need = min(-(-(p + Sq) // ps), P)
+        pt[b, :need] = perm[used:used + need].to(torch.int32)
+        used += need
+        if need < P:
+            pt[b, -1] = -1
+    return q, (kp, vp, pt.to(dev))
+
+
+def _prefill(paged, q, kv, pos, **kw):
+    from repro_torch.kernels import prefill_attention as kp_
+    fn = kp_.prefill_attention_paged if paged else kp_.prefill_attention
+    return fn(q, *kv, pos, **kw)
+
+
+def _prefill_ref(paged, q, kv, pos):
+    if paged:
+        return ref.ref_prefill_attention_paged(q, *kv, pos)
+    return ref.ref_prefill_attention(q, kv[0].transpose(1, 2),
+                                     kv[1].transpose(1, 2), pos)
+
+
+def _prefill_late_rel(got, want, pos, window, Hkv):
+    """Relative L2 error of ``got`` against ``want`` ([B,Sq,H,D]) per (row,
+    KV head) over the chunk positions that see >= 512 keys: [rows that
+    have such positions, Hkv]."""
+    B, Sq = want.shape[:2]
+    seen = torch.clamp(torch.tensor(pos)[:, None] + torch.arange(Sq)[None],
+                       max=window - 1) + 1
+    sel = (seen >= 512).to(want.device)[:, :, None, None]
+    d = ((got.float() - want.float()) * sel).reshape(B, Sq, Hkv, -1)
+    w = (want.float() * sel).reshape(B, Sq, Hkv, -1)
+    rel = d.square().sum((1, 3)).sqrt() / w.square().sum((1, 3)).sqrt()
+    return rel[sel[:, :, 0, 0].any(1)]
 
 
 @pytest.fixture
@@ -590,11 +726,113 @@ class TestCudaKernels:
         one = kp_.prefill_attention_paged(q[:, :1], kp, vp, pt, pos)
         dec = kd.decode_attention_paged(q[:, 0].contiguous(), kp, vp, pt,
                                         pos)
-        rtol, atol = SQ1_TOL[dtype]
-        torch.testing.assert_close(one[:, 0], dec, rtol=rtol, atol=atol)
+        if dtype in SQ1_TOL:
+            rtol, atol = SQ1_TOL[dtype]
+            torch.testing.assert_close(one[:, 0], dec, rtol=rtol, atol=atol)
+        else:
+            d = (one[:, 0].float() - dec.float()).reshape(B, Hkv, -1)
+            w = dec.float().reshape(B, Hkv, -1)
+            rel = (d.norm(dim=2) / w.norm(dim=2)).max().item()
+            assert rel <= SQ1_REL_TOL[dtype], rel
         wd = ref.ref_decode_attention_paged(q[:, 0], kp, vp, pt, pos)
         torch.testing.assert_close(dec.float(), wd.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+    @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    @pytest.mark.parametrize("G", [1, 2, 4, 8])
+    @pytest.mark.parametrize("D", [32, 64, 128])
+    def test_prefill(self, cuda, D, G, dtype, paged):
+        """Chunked prefill on the route ``route(dtype, D)`` names (counted
+        in ``.routes``) against the plain version, Sq 1/5/100/256, over a
+        ragged dense window of 1000 keys or a 75-page table (1200 keys, 10
+        key tiles): rows at pos 0, crossing and at a key-tile boundary, a
+        late row, one ending at the last key, and the sentinel; unmapped
+        and negative page entries past each row's pages; the late-row
+        check."""
+        from repro_torch.kernels import prefill_attention as kp_
+        g = torch.Generator(device=cuda).manual_seed(5)
+        dt = getattr(torch, dtype)
+        Hkv = 2
+        window = 1200 if paged else 1000
+        fn = kp_.prefill_attention_paged if paged else kp_.prefill_attention
+        way = kp_.route(dt, D)
+        for Sq in (1, 5, 100, 256):
+            pos = [0, 100, 128, 700, window - Sq, window]
+            q, kv = _prefill_case(g, cuda, dt, pos, Sq, G * Hkv, Hkv, D,
+                                  window, paged)
+            p = torch.tensor(pos, device=cuda, dtype=torch.int32)
+            before = dict(fn.routes)
+            got = _prefill(paged, q, kv, p)
+            assert fn.routes == {**before, way: before[way] + 1}, Sq
+            want = _prefill_ref(paged, q, kv, p)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=CUDA_TOL[dtype],
+                                       atol=CUDA_TOL[dtype])
+            rel = _prefill_late_rel(got, want, pos, window, Hkv)
+            assert rel.max().item() <= LATE_REL_TOL[dtype], (Sq, rel)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("ps", [8, 12, 32])
+    def test_prefill_page_sizes(self, cuda, ps, dtype):
+        """Pages of 8 and 32 keys (a power of two: shift and mask) and of
+        12 (division), against the plain version, qwen3-1.7b heads, a
+        window of 10 key tiles with a sentinel row."""
+        g = torch.Generator(device=cuda).manual_seed(7)
+        dt = getattr(torch, dtype)
+        Hkv, Sq = 8, 100
+        window = (1280 // ps) * ps
+        pos = [0, 130, 700, window - Sq, window]
+        q, kv = _prefill_case(g, cuda, dt, pos, Sq, 16, Hkv, 128, window,
+                              True, ps=ps)
+        p = torch.tensor(pos, device=cuda, dtype=torch.int32)
+        got = _prefill(True, q, kv, p)
+        want = _prefill_ref(True, q, kv, p)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=CUDA_TOL[dtype], atol=CUDA_TOL[dtype])
+        rel = _prefill_late_rel(got, want, pos, window, Hkv)
+        assert rel.max().item() <= LATE_REL_TOL[dtype], rel
+
+    @pytest.mark.parametrize("dtype,D", [("float32", 128), ("bfloat16", 32),
+                                         ("bfloat16", 64),
+                                         ("bfloat16", 128)])
+    @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+    def test_prefill_bits_invariant(self, cuda, paged, dtype, D):
+        """Bit for bit, on both routes: two calls; the first ``abort``
+        rows against the whole chunk's and against a chunk of exactly
+        ``abort`` tokens (that row alone); rows [a, Sq) against a call at
+        pos + a, a = 1, 37, 64; a row alone against the same row in a
+        batch of 8."""
+        g = torch.Generator(device=cuda).manual_seed(6)
+        dt = getattr(torch, dtype)
+        H, Hkv, Sq, window = 16, 8, 200, 2048
+        pos = [5, window, 700, 1777, 256, 0, 1848, 1024]
+        aborts = [0, 1, 37, 64, Sq, Sq + 5, 130, 3]
+        q, kv = _prefill_case(g, cuda, dt, pos, Sq, H, Hkv, D, window,
+                              paged)
+        p = torch.tensor(pos, device=cuda, dtype=torch.int32)
+
+        def rows(b):
+            return (*kv[:2], kv[2][b:b + 1]) if paged else \
+                tuple(x[b:b + 1] for x in kv)
+
+        whole = _prefill(paged, q, kv, p)
+        assert torch.equal(_prefill(paged, q, kv, p), whole)
+        out_a, prog = _prefill(paged, q, kv, p, abort=torch.tensor(
+            aborts, device=cuda, dtype=torch.int32))
+        assert prog.tolist() == [min(a, Sq) for a in aborts]
+        for b, cap in enumerate(prog.tolist()):
+            if cap:
+                assert torch.equal(out_a[b, :cap], whole[b, :cap]), b
+                small = _prefill(paged, q[b:b + 1, :cap], rows(b),
+                                 p[b:b + 1])
+                assert torch.equal(small[0], whole[b, :cap]), b
+        for a in (1, 37, 64):
+            assert torch.equal(_prefill(paged, q[:, a:], kv, p + a),
+                               whole[:, a:]), a
+        for b in (1, 3, 6):
+            assert torch.equal(_prefill(paged, q[b:b + 1], rows(b),
+                                        p[b:b + 1]), whole[b:b + 1]), b
 
     def test_dense_prefill_counts_launches(self, cuda):
         from repro_torch.kernels import prefill_attention as kp_

@@ -392,7 +392,9 @@ def test_reset_clears_route_counts():
                for n in r.values())
     assert set(ops.route_counts()) == {"flash_attention",
                                        "dual_tenant_attention",
-                                       "dual_tenant_matmul"}
+                                       "dual_tenant_matmul",
+                                       "prefill_attention",
+                                       "prefill_attention_paged"}
 
 
 # ---------------------------------------------------------------------------
