@@ -20,18 +20,23 @@ non-zero:
              read above the limit; dense decode on a bshd copy equal to bhsd
              bit for bit; every prefill call required on the route
              ``route(dtype, D)`` names (bf16: the tensor-core "wgmma" body;
-             f32: "simt"). Each kernel is timed beside its plain version and
-             one PyTorch library call, on the device from a CUDA graph of 20
-             calls (``device_ms``; a call may take the host longer to enqueue
-             than the device to run), with the host's enqueue time
-             (``host_ms``) and the back-to-back loop time beside it.
+             f32 and f16: "simt"; f16 on qwen3-1.7b heads only, checked
+             within F16_TOL and timed). Each kernel is timed beside its
+             plain version and one PyTorch library call, on the device from
+             a CUDA graph of 20 calls (``device_ms``; a call may take the
+             host longer to enqueue than the device to run), with the
+             host's enqueue time (``host_ms``) and the back-to-back loop
+             time beside it.
 4. model   — qwen3-1.7b at its published width (28 layers, bf16, random
              weights from the seed): one paged 256-token prefill_step for 4
              rows and 8 decode_steps, with use_flash on and off.
 5. engine  — the LS+BE paged engine with use_flash: LS qwen3-1.7b, BE
              stablelm-1.6b, 8 slots each, chunk 256, ResourcePlan(sm_be=0.3);
              every prefill launch on the "wgmma" route (both bf16).
-6. dense   — an LS-only dense-cache engine with use_flash, likewise.
+6. dense   — an LS-only dense-cache engine with use_flash, likewise;
+             then (6b) the LS qwen3-1.7b tenant in f32 (TF32 off), dense
+             and paged: every prefill launch on the CUDA-core ("simt")
+             body, its launches the f32 rows' engine counts.
 7. SGDRC kernels — the kernel layer's co-execution and shadow-page-table
              entry points (``repro_torch.kernels.ops``) at full width:
              flash_attention at qwen3-1.7b heads (causal, bf16 and f32;
@@ -63,11 +68,12 @@ non-zero:
              tokens; every zamba2 decode step launches decode_attention
              once per shared-block invocation (6).
 
-Launch counts of phases 5, 6, 7, 8a and 8c are read with the counters set
-to 0 just before each phase drives its path (phases 7 and 8a count their
-drive, before their checks and timings). The next-to-last line is one JSON
-object with every kernel's launches and times; the last line is the device
-JSON.
+Launch counts of phases 5, 6, 6b, 7, 8a and 8c are read with the counters
+set to 0 just before each phase drives its path (phases 7 and 8a count
+their drive, before their checks and timings). The next-to-last line is one
+JSON object with every kernel's launches and times (phase 3's f32 rows of
+the four engine kernels under "float32", with phase 6b's launches); the
+last line is the device JSON.
 """
 from __future__ import annotations
 
@@ -107,6 +113,10 @@ SQ1_TOL = {"float32": (2e-6, 2e-6)}
 # holding the tile before it) 0.235 to 0.304. The limit sits between, as
 # LATE_REL_TOL's: a few bf16 roundings against a tile-sized fault.
 SQ1_REL_TOL = {"bfloat16": 2e-2}
+# phase 3, f16 prefill (timed beside f32 on the CUDA-core body): f16 inputs
+# rounded the same on both sides, so kernel and plain version differ by f32
+# summation order and one output rounding (2^-11 of the value) each.
+F16_TOL = 2e-3
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -371,12 +381,16 @@ def kernel_phase(torch, seed):
                        f"library_loop_ms={loop[1]:.4f} of_bound="
                        f"{bound[0] / ms:.3f} vs_library={ms / lib_ms:.3f}"))
                 require(err == err, f"{name} {tag}: NaN in the output")
-                if main and model == "qwen3-1.7b" and ms is not None:
-                    results[name] = {"max_abs_err": err, "ms": ms,
-                                     "plain_ms": plain_ms,
-                                     "library_ms": lib_ms,
-                                     "bound_ms": bound[0],
-                                     "bound_by": bound[1]}
+                if model == "qwen3-1.7b" and ms is not None:
+                    row = {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": bound[0], "bound_by": bound[1],
+                           "of_bound": bound[0] / ms,
+                           "vs_library": ms / lib_ms}
+                    if main:
+                        results[name] = row
+                    else:  # the bf16 row comes first
+                        results[name]["float32"] = row
 
             def close(a, b, what):
                 err = (a.float() - b.float()).abs().max().item()
@@ -423,6 +437,22 @@ def kernel_phase(torch, seed):
                                     f"relative L2 {rel} over {lim}")
                 require(planted > lim, f"Sq=1 {what} {tag}: the check misses "
                                        f"a planted fault ({planted})")
+
+            def f16_row(name, fn, tensors, call, plain):
+                """``call`` and ``plain`` on the f32 call's q, k, v
+                (``tensors``) rounded to f16, on the CUDA-core body: within
+                F16_TOL of the plain version, and timed."""
+                qkv = [x.half() for x in tensors]
+                out = routed(fn, lambda: call(*qkv))
+                want = plain(*qkv)
+                err = (out.float() - want.float()).abs().max().item()
+                require(torch.allclose(out.float(), want.float(),
+                                       rtol=F16_TOL, atol=F16_TOL),
+                        f"{name} {model} float16: max abs {err}")
+                ms = graph_ms(lambda: call(*qkv))
+                log(f"  {name:24s} {model + ' float16':26s} max_abs_err="
+                    f"{err:.3e} device_ms={ms:.4f}")
+                results[name]["float16"] = {"max_abs_err": err, "ms": ms}
 
             def routed(fn, call):
                 """``call()``, required to launch ``fn`` once on the route
@@ -524,6 +554,11 @@ def kernel_phase(torch, seed):
                 _bound_ms(kvk, B, Sq, H, Hkv, D, q.element_size(), pairs,
                           dname),
                 host_ms(kern), (cuda_ms(kern), cuda_ms(lib)))
+            if not main and model == "qwen3-1.7b":
+                f16_row("prefill_attention_paged", fn, (q, kpool, vpool),
+                        lambda *qkv: fn(*qkv, pt, posp),
+                        lambda *qkv: ref.ref_prefill_attention_paged(
+                            *qkv, pt, posp))
 
             # -- 3: dense decode (bhsd, the serving layout; bshd too) --
             Bd, Smax = 4, 2048
@@ -632,6 +667,11 @@ def kernel_phase(torch, seed):
                 _bound_ms(kvk, Bd, Sq, H, Hkv, D, q.element_size(), pairs,
                           dname),
                 host_ms(kern), (cuda_ms(kern), cuda_ms(lib)))
+            if not main and model == "qwen3-1.7b":
+                f16_row("prefill_attention", fn, (q, kc, vc),
+                        lambda *qkv: fn(*qkv, posp),
+                        lambda q, k, v: ref.ref_prefill_attention(
+                            q, k.transpose(1, 2), v.transpose(1, 2), posp))
             del kpool, vpool, kc, vc, kr, vr
             torch.cuda.empty_cache()
     return results
@@ -752,7 +792,7 @@ def model_phase(torch, seed):
 # ---------------------------------------------------------------------------
 
 def _serve(torch, seed, *, paged, chunk, ls_lens, be_lens, max_new,
-           slots, max_seq, plan=None, params=None):
+           slots, max_seq, plan=None, params=None, ls_cfg=None):
     from repro_torch.configs import get_config
     from repro_torch.core.tenancy import TenantSpec
     from repro_torch.serving import ServingEngine
@@ -762,7 +802,7 @@ def _serve(torch, seed, *, paged, chunk, ls_lens, be_lens, max_new,
                         slots_be=slots, plan=plan, torch_device="cuda")
     t0 = time.perf_counter()
     ls = eng.add_tenant(TenantSpec("ls-qwen3", "LS"),
-                        get_config("qwen3-1.7b"),
+                        ls_cfg or get_config("qwen3-1.7b"),
                         params=None if params is None else params["ls"],
                         seed=seed)
     be = None
@@ -861,6 +901,43 @@ def dense_phase(torch, seed):
     del eng2, params
     torch.cuda.empty_cache()
     return counts, routes
+
+
+def f32_engine_phase(torch, seed):
+    """The LS qwen3-1.7b tenant in f32 (TF32 off), dense cache then paged,
+    with the same weights: every prefill launch on the CUDA-core ("simt")
+    body. Returns the launch counts of both runs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config("qwen3-1.7b").replace(activation_dtype="float32")
+    rng = np.random.default_rng(seed + 13)
+    ls_lens = [int(x) for x in rng.integers(128, 513, 4)]
+    log(f"  LS prompts {ls_lens}; max_new 8; chunk 256; f32")
+    counts, params = {}, None
+    for paged in (False, True):
+        sfx = "_paged" if paged else ""
+        name = "prefill_attention" + sfx
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, _, params = _serve(torch, seed, paged=paged, chunk=256,
+                                ls_lens=ls_lens, be_lens=[], max_new=8,
+                                slots=4, max_seq=1024, ls_cfg=cfg,
+                                params=None if params is None
+                                else {"ls": params})
+        run = ops.launch_counts()
+        routes = ops.route_counts()[name]
+        log(f"  {'paged' if paged else 'dense'}: "
+            f"{time.perf_counter() - t0:.2f}s wall (tenant set-up "
+            f"included), launches {run}, prefill routes {routes}")
+        require(run[name] > 0 and routes == {"wgmma": 0, "simt": run[name]},
+                f"f32 engine prefill routes {routes}, launches {run}")
+        for k in ("decode_attention" + sfx, name):
+            counts[k] = run[k]
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1498,6 +1575,11 @@ def main():
     for name, routes in (("prefill_attention_paged", paged_routes),
                          ("prefill_attention", dense_routes)):
         kres[name]["routes"] = routes[name]
+    log("== phase 6b: engine LS qwen3-1.7b in f32, dense then paged, flash")
+    f32_counts = f32_engine_phase(torch, args.seed)
+    for name in ("decode_attention_paged", "prefill_attention_paged",
+                 "decode_attention", "prefill_attention"):
+        kres[name]["float32"]["launches"] = f32_counts[name]
 
     if args.until <= 6:
         return 1

@@ -114,6 +114,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// global -> shared by the copy engine, completing on `bar`'s transaction
+// count. It takes no tensor map, so any row of any layout.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // -- cp.async: 16-byte copies, each tracked by the thread that starts it ----
 
 // 16 bytes global -> shared, bypassing L1; zero-filled when !valid (no

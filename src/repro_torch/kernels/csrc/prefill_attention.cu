@@ -8,41 +8,35 @@
 //          of 128 at absolute positions, 16-byte cp.async into swizzled
 //          tiles);
 //   simt:  f32 and f16 at head dims 32, 64 and 128, and bf16 at 32, on CUDA
-//          cores (attention_core.cuh: blocks of 16 flattened rows).
-// Both stop a block at the last key its own rows may see (causal), and rows
+//          cores (prefill_simt.cuh: units of 64 flattened query rows, key
+//          tiles of 128 at absolute positions, register-tiled f32 FMAs,
+//          bulk copies into shared memory).
+// Both stop a unit at the last key its own rows may see (causal), and rows
 // at or past the abort cap see no key.
 #include <type_traits>
 
-#include "attention_core.cuh"
+#include "prefill_args.cuh"
+#include "prefill_simt.cuh"
 #include "prefill_wgmma.cuh"
 
 namespace sgdrc {
 namespace {
 
-constexpr int kSimtRows = 16;
-
-template <typename T, int D>
-cudaError_t launch_simt(const AttnArgs& a, cudaStream_t stream) {
-  const int G = a.H / a.Hkv;
-  const dim3 grid((a.Sq * G + kSimtRows - 1) / kSimtRows, a.Hkv, a.B);
-  attention_kernel<T, D, kSimtRows><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // The simt route: bf16 only at D 32 (its D 64 and 128 take the wgmma route,
 // so they are not instantiated here).
 template <typename T>
-cudaError_t simt(const AttnArgs& a, int D, cudaStream_t stream) {
+cudaError_t launch_simt(const AttnArgs& a, int D, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if (D == 32) return launch_simt<T, 32>(a, stream);
+  if (D == 32) return simt::launch<T, 32>(a, stream);
   if constexpr (!kBf16) {
-    if (D == 64) return launch_simt<T, 64>(a, stream);
-    if (D == 128) return launch_simt<T, 128>(a, stream);
+    if (D == 64) return simt::launch<T, 64>(a, stream);
+    if (D == 128) return simt::launch<T, 128>(a, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-cudaError_t wgmma(const AttnArgs& a, int dtype, int D, cudaStream_t stream) {
+cudaError_t launch_wgmma(const AttnArgs& a, int dtype, int D,
+                         cudaStream_t stream) {
   if (dtype != 1) return cudaErrorInvalidValue;  // bf16 only
   if (D == 64) return prefill::launch<64>(a, stream);
   if (D == 128) return prefill::launch<128>(a, stream);
@@ -94,8 +88,8 @@ extern "C" int sgdrc_prefill_attention(
   if (Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_wgmma) return static_cast<int>(sgdrc::wgmma(a, dtype, D, st));
+  if (use_wgmma) return static_cast<int>(sgdrc::launch_wgmma(a, dtype, D, st));
   return static_cast<int>(sgdrc::with_dtype(dtype, [&](auto tag) {
-    return sgdrc::simt<typename decltype(tag)::type>(a, D, st);
+    return sgdrc::launch_simt<typename decltype(tag)::type>(a, D, st);
   }));
 }

@@ -1,16 +1,11 @@
 // The bf16 tile body of chunked-prefill attention on Hopper tensor cores: the
 // "wgmma" route of prefill_attention.cu, for bf16 at head dims 64 and 128
-// (f32, f16, and bf16 at D 32 take attention_core.cuh's CUDA-core body, the
+// (f32, f16, and bf16 at D 32 take prefill_simt.cuh's CUDA-core body, the
 // "simt" route).
 //
-// Replaces, with attention_core.cuh, the Pallas online-softmax body of
+// Replaces, with prefill_simt.cuh, the Pallas online-softmax body of
 //   src/repro/kernels/prefill_attention.py (_kernel, prefill_attention[_paged])
-// and computes what attention_core.cuh states: for batch row b and KV head h
-// the query rows are the Sq chunk positions times the G = H / Hkv heads of
-// that KV head, flattened as row = s * G + g; row `row` sits at position
-// pos[b] + row / G and sees the keys t <= that position, t < window, and
-// only if row / G < cap = clamp(abort[b], 0, Sq). f32 softmax state with the
-// finite NEG_INF = -1e30, out = acc / max(l, 1e-30), progress[b] = cap.
+// and computes the contract stated in prefill_args.cuh.
 //
 // What bounds it on the card: operations. A chunk of Sq tokens does 4 * D
 // flops per visible (query row, key) pair against 4 * D bytes of K and V per
@@ -67,8 +62,8 @@
 
 #include <stdint.h>
 
-#include "attention_core.cuh"
 #include "hopper.cuh"
+#include "prefill_args.cuh"
 
 namespace sgdrc {
 namespace prefill {
@@ -104,17 +99,6 @@ struct Tile {
   // + barriers (q_full, full[STAGES], empty[STAGES]) + 1024 for alignment
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
-
-// Keys a run of flattened rows [r_lo, r_hi) may see: up to the position of
-// its last live row (below cap), never past the window; 0 when no row of it
-// is live.
-__device__ __forceinline__ int keys_seen(const AttnArgs& a, int pos, int cap,
-                                         int G, int r_lo, int r_hi) {
-  const int n_rows = a.Sq * G;
-  if (r_lo >= n_rows || r_lo / G >= cap) return 0;
-  const int s_hi = min((min(r_hi, n_rows) - 1) / G, cap - 1);
-  return max(min(pos + s_hi, a.window - 1) + 1, 0);
-}
 
 // The producer warpgroup's own barrier (0 is __syncthreads).
 __device__ __forceinline__ void producer_sync() {

@@ -15,16 +15,17 @@ row leaves its softmax state as it was.
 
 What bounds them on the card is operations at the engine's chunk lengths
 (4 * D flops per visible (query row, key) pair, shared K/V tiles). Per KV
-head the chunk's Sq * G query rows flatten into row blocks that share every
-K/V tile they load, and a block reads keys only up to the last position its
+head the chunk's Sq * G query rows flatten into row units that share every
+K/V tile they load, and a unit reads keys only up to the last position its
 own rows may see (``pos + min(last row, abort - 1)``), so the causal
 triangle and the abort cap both cut work. :func:`route` picks the body
 before the launch: ``"wgmma"`` for bf16 at head dims 64 and 128
 (``csrc/prefill_wgmma.cuh``: 128-row units, both products on the tensor
-cores, 16-byte ``cp.async`` through the page table), ``"simt"`` otherwise
-(``csrc/attention_core.cuh``: f32 FMAs on CUDA cores, 16-row blocks). A
-launch that fails raises; nothing retries on the other route. The chunk's
-own K/V must already be in the cache.
+cores), ``"simt"`` otherwise (``csrc/prefill_simt.cuh``: 64-row units, f32
+FMAs on CUDA cores from register tiles). Both copy q, k and v rows in
+16-byte pieces (``cp.async``, bulk copies, vector loads), so every row must
+start on a 16-byte boundary. A launch that fails raises; nothing retries on
+the other route. The chunk's own K/V must already be in the cache.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain versions. Each wrapper counts its launches in ``<wrapper>.launches``,
@@ -50,16 +51,17 @@ def route(dtype, D) -> str:
 
 
 def _check_rows16(name, tensors):
-    """Raise unless every row the tensor-core body copies with 16-byte
-    ``cp.async`` starts on a 16-byte boundary: a contiguous last axis, the
-    strides of the other axes (those longer than 1) multiples of 8
-    elements, the data 16-byte aligned."""
+    """Raise unless every row the kernels copy with 16-byte loads starts on
+    a 16-byte boundary: a contiguous last axis, the strides of the other
+    axes (those longer than 1) multiples of 16 bytes, the data 16-byte
+    aligned."""
     for what, t in tensors.items():
+        size = t.element_size()
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                s % 8 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                s * size % 16 for s, n in zip(t.stride()[:-1], t.shape[:-1])
                 if n > 1):
             raise ValueError(f"{name}: {what} rows must be 16-byte aligned "
-                             f"for the wgmma route (strides {t.stride()})")
+                             f"(strides {t.stride()})")
 
 
 def _launch(name, fn, q, k, v, pos, abort, **kw):
@@ -67,8 +69,7 @@ def _launch(name, fn, q, k, v, pos, abort, **kw):
     ``(out, progress)`` when ``abort`` is given."""
     B = q.shape[0]
     way = route(q.dtype, q.shape[-1])
-    if way == "wgmma":
-        _check_rows16(name, {"q": q, "k": k, "v": v})
+    _check_rows16(name, {"q": q, "k": k, "v": v})
     ab = prog = None
     if abort is not None:
         ab = pos_vector(abort, B, q.device)

@@ -5,9 +5,10 @@ CPU tensors) against the JAX kernels in interpret mode, on the same inputs
 made from a numpy seed, at the shapes of ``tests/test_kernels.py``: dense and
 paged decode and chunked prefill, ragged positions, non-dividing windows,
 the abort/progress protocol and Sq == 1 prefill == decode; chunked prefill
-split in two calls and cut at an abort cap against the whole chunk, and the
-route each dtype and head dim takes. Tolerances are the reference's: 2e-5 in
-f32, 3e-2 in bf16.
+split in two calls and cut at an abort cap against the whole chunk, the
+route each dtype and head dim takes, and the prefill wrapper's refusal of
+rows off 16-byte boundaries. Tolerances are the reference's: 2e-5 in f32,
+3e-2 in bf16.
 
 The split-K decode kernel's plan (``kernels/decode_attention.py``): every
 visible key read once by the cluster's blocks for every row position and
@@ -267,6 +268,26 @@ def test_prefill_route(dtype, D):
     from repro_torch.kernels import prefill_attention as kp_
     want = "wgmma" if dtype == "bfloat16" and D in (64, 128) else "simt"
     assert kp_.route(getattr(torch, dtype), D) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_prefill_wrapper_refuses_unaligned_rows(dtype):
+    """Both bodies copy q, k and v rows in 16-byte pieces: the wrapper
+    raises on rows that do not start on 16-byte boundaries, before any
+    launch; given a CPU tensor it raises rather than fall back."""
+    from repro_torch.kernels import prefill_attention as kp_
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 3, 2, 32, dtype=dt)
+    kc = torch.zeros(1, 2, 16, 32, dtype=dt)
+    pos = torch.zeros(1, dtype=torch.int32)
+    odd_q = torch.zeros(1, 3, 2, 33, dtype=dt)[..., 1:]    # starts 1 off
+    odd_k = torch.zeros(1, 2, 16, 33, dtype=dt)[..., :32]  # rows 33 apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kp_.prefill_attention(odd_q, kc, kc, pos)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kp_.prefill_attention(q, odd_k, odd_k, pos)
+    with pytest.raises(ValueError, match="CUDA kernel called on cpu"):
+        kp_.prefill_attention(q, kc, kc, pos)
 
 
 # The plain version against itself across chunkings: the same rows in
@@ -744,46 +765,53 @@ class TestCudaKernels:
     @pytest.mark.parametrize("D", [32, 64, 128])
     def test_prefill(self, cuda, D, G, dtype, paged):
         """Chunked prefill on the route ``route(dtype, D)`` names (counted
-        in ``.routes``) against the plain version, Sq 1/5/100/256, over a
-        ragged dense window of 1000 keys or a 75-page table (1200 keys, 10
-        key tiles): rows at pos 0, crossing and at a key-tile boundary, a
-        late row, one ending at the last key, and the sentinel; unmapped
-        and negative page entries past each row's pages; the late-row
-        check."""
+        in ``.routes``) against the plain version, Sq 1/5/65/100/256, over
+        a ragged dense window of 1000 keys or a 75-page table (1200 keys),
+        and over a window shorter than one key tile (40 dense, 3 pages
+        paged): rows at pos 0, crossing and at a key-tile boundary, a late
+        row, one ending at the last key, and the sentinel (clamped to the
+        short window); unmapped and negative page entries past each row's
+        pages; the late-row check on the long window. Sq = 65 leaves one
+        or two rows in a unit of their own."""
         from repro_torch.kernels import prefill_attention as kp_
         g = torch.Generator(device=cuda).manual_seed(5)
         dt = getattr(torch, dtype)
         Hkv = 2
-        window = 1200 if paged else 1000
         fn = kp_.prefill_attention_paged if paged else kp_.prefill_attention
         way = kp_.route(dt, D)
-        for Sq in (1, 5, 100, 256):
-            pos = [0, 100, 128, 700, window - Sq, window]
-            q, kv = _prefill_case(g, cuda, dt, pos, Sq, G * Hkv, Hkv, D,
-                                  window, paged)
-            p = torch.tensor(pos, device=cuda, dtype=torch.int32)
-            before = dict(fn.routes)
-            got = _prefill(paged, q, kv, p)
-            assert fn.routes == {**before, way: before[way] + 1}, Sq
-            want = _prefill_ref(paged, q, kv, p)
-            torch.testing.assert_close(got.float(), want.float(),
-                                       rtol=CUDA_TOL[dtype],
-                                       atol=CUDA_TOL[dtype])
-            rel = _prefill_late_rel(got, want, pos, window, Hkv)
-            assert rel.max().item() <= LATE_REL_TOL[dtype], (Sq, rel)
+        for window in ((1200, 48) if paged else (1000, 40)):
+            for Sq in (1, 5, 65, 100, 256):
+                pos = [min(p, window) for p in (0, 100, 128, 700)] + \
+                    [max(window - Sq, 0), window]
+                q, kv = _prefill_case(g, cuda, dt, pos, Sq, G * Hkv, Hkv, D,
+                                      window, paged)
+                p = torch.tensor(pos, device=cuda, dtype=torch.int32)
+                before = dict(fn.routes)
+                got = _prefill(paged, q, kv, p)
+                assert fn.routes == {**before, way: before[way] + 1}, Sq
+                want = _prefill_ref(paged, q, kv, p)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=CUDA_TOL[dtype],
+                                           atol=CUDA_TOL[dtype])
+                if window >= 512:
+                    rel = _prefill_late_rel(got, want, pos, window, Hkv)
+                    assert rel.max().item() <= LATE_REL_TOL[dtype], (Sq, rel)
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    @pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (8, 1, 64),
+                                         (4, 4, 32)])
     @pytest.mark.parametrize("ps", [8, 12, 32])
-    def test_prefill_page_sizes(self, cuda, ps, dtype):
+    def test_prefill_page_sizes(self, cuda, ps, H, Hkv, D, dtype):
         """Pages of 8 and 32 keys (a power of two: shift and mask) and of
-        12 (division), against the plain version, qwen3-1.7b heads, a
-        window of 10 key tiles with a sentinel row."""
+        12 (division), against the plain version, at qwen3-1.7b heads, G 8
+        at D 64 and G 1 at D 32, over a window of about 1270 keys (not a
+        multiple of either body's key tile) with a sentinel row."""
         g = torch.Generator(device=cuda).manual_seed(7)
         dt = getattr(torch, dtype)
-        Hkv, Sq = 8, 100
-        window = (1280 // ps) * ps
+        Sq = 100
+        window = (1270 // ps) * ps
         pos = [0, 130, 700, window - Sq, window]
-        q, kv = _prefill_case(g, cuda, dt, pos, Sq, 16, Hkv, 128, window,
+        q, kv = _prefill_case(g, cuda, dt, pos, Sq, H, Hkv, D, window,
                               True, ps=ps)
         p = torch.tensor(pos, device=cuda, dtype=torch.int32)
         got = _prefill(True, q, kv, p)
@@ -793,7 +821,8 @@ class TestCudaKernels:
         rel = _prefill_late_rel(got, want, pos, window, Hkv)
         assert rel.max().item() <= LATE_REL_TOL[dtype], rel
 
-    @pytest.mark.parametrize("dtype,D", [("float32", 128), ("bfloat16", 32),
+    @pytest.mark.parametrize("dtype,D", [("float32", 128), ("float32", 64),
+                                         ("float16", 64), ("bfloat16", 32),
                                          ("bfloat16", 64),
                                          ("bfloat16", 128)])
     @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
