@@ -45,16 +45,22 @@ non-zero:
              heads, S 2048), equal bit for bit to flash_attention for
              sm_be 0.1/0.3/0.9; dual_tenant_matmul at qwen3-1.7b's gate
              projection (LS 256 x 2048 @ 2048 x 6144, BE 2048 x 2048 @ the
-             same); spt_scatter/spt_gather of a 1 GiB LS and a 512 MiB BE
-             bf16 tensor through the SPTs of a 2 GiB ColoredArena. Each
+             same) and down projection (LS 256 x 6144 @ 6144 x 2048, BE
+             2048 x 6144 @ the same) in bf16, f32 and f16, each tenant's
+             output equal bit for bit across sm_be 0.1/0.3/0.9 and to a
+             call with the other tenant empty (bf16, f32);
+             spt_scatter/spt_gather of a 1 GiB LS and a 512 MiB BE bf16
+             tensor through the SPTs of a 2 GiB ColoredArena. Each
              against its plain version, and timed beside it, its bound and
              one PyTorch library call. Every bf16 call of flash, dual-tenant
              attention and the matmul must take the tensor-core ("wgmma")
-             route and every f32 call the CUDA-core ("simt") route; each
+             route and every f32 (and f16) call the CUDA-core ("simt")
+             route; each
              time is printed with its route, TFLOP/s and host enqueue
              time (``host_ms``: checks, TMA tensor maps, launch), and
              rows 5-7 of the kernels' JSON line carry the drive's
-             launches by route.
+             launches by route; the matmul's row also carries its f32 and
+             f16 rows and the down projection's.
 8. SSM and hybrid families — (a) ``ops.ssd_scan`` at zamba2-1.2b's mamba2
              widths (B 4, T 2048, H 64, K 64, P 64, chunk 64) with mamba2's
              decays (bf16 and f32), the reference tests' decay range and
@@ -119,7 +125,7 @@ SQ1_REL_TOL = {"bfloat16": 2e-2}
 F16_TOL = 2e-3
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # model phase: last-position logits of flash vs torch-op attention in bf16.
 # Both paths round each layer's attention output to bf16 (2^-8 relative)
 # at different places, and those roundings compound through 28 residual
@@ -149,11 +155,13 @@ SOURCES = {
                     "src/repro/kernels/spt_gather.py:49"),
     "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:59"),
 }
-# dual_tenant_matmul (rtol, atol). f32: the reference's. bf16: the kernel
-# and the plain version each round an f32 sum (within f32 noise of each
-# other) to bf16 once, so they land on the same or a neighbouring bf16
-# value: one output rounding, at most 2^-7 of the value apart.
-MATMUL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -7, 1e-4)}
+# dual_tenant_matmul (rtol, atol). f32: the reference's. bf16 and f16: the
+# kernel and the plain version each round an f32 sum (within f32 noise of
+# each other) to the type once, so they land on the same or a neighbouring
+# value: one output rounding, at most 2^-7 (bf16) or 2^-10 (f16) of the
+# value apart.
+MATMUL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -7, 1e-4),
+              "float16": (2 ** -10, 1e-4)}
 SPT_ARENA_BYTES = 2 << 30
 HEADS = {"qwen3-1.7b": (16, 8, 128), "stablelm-1.6b": (32, 32, 64)}
 # ssd_scan: |got - want| <= rtol * |want| + atol * max(1, max |want|). The
@@ -1025,14 +1033,17 @@ def sgdrc_phase(torch, seed):
     dual = {d: (qkv(qwen, 1, 2048, getattr(torch, d)),
                 qkv(qwen, 4, 2048, getattr(torch, d)))
             for d in ("bfloat16", "float32")}
-    # gate projection: activations ~N(0, 1), weights ~N(0, 1/d_model) as the
-    # models' init scales them
-    Kd, Nf = qwen.d_model, qwen.d_ff
-    mm = {d: (randn(256, Kd, dtype=getattr(torch, d)),
-              randn(Kd, Nf, dtype=getattr(torch, d), scale=Kd ** -0.5),
-              randn(2048, Kd, dtype=getattr(torch, d)),
-              randn(Kd, Nf, dtype=getattr(torch, d), scale=Kd ** -0.5))
-          for d in ("bfloat16", "float32")}
+    # the MLP's gate and down projections (K, N), LS 256 + BE 2048 rows:
+    # activations ~N(0, 1), weights ~N(0, 1/K) as the models' init scales
+    # them; bf16 on the tensor cores, f32 and f16 on the CUDA cores
+    mm_shapes = {"gate": (qwen.d_model, qwen.d_ff),
+                 "down": (qwen.d_ff, qwen.d_model)}
+    mm = {(sh, d): (randn(256, K, dtype=getattr(torch, d)),
+                    randn(K, N, dtype=getattr(torch, d), scale=K ** -0.5),
+                    randn(2048, K, dtype=getattr(torch, d)),
+                    randn(K, N, dtype=getattr(torch, d), scale=K ** -0.5))
+          for sh, (K, N) in mm_shapes.items()
+          for d in ("bfloat16", "float32", "float16")}
     t0 = time.perf_counter()
     hm = coloring.gpu_hash_model("tesla-p40")
     arena = coloring.ColoredArena(SPT_ARENA_BYTES, hm.channel_of,
@@ -1066,7 +1077,8 @@ def sgdrc_phase(torch, seed):
         dual_out[d] = {sm: ops.dual_tenant_attention(*ls, *be, sm_be=sm)
                        for sm in (0.1, 0.3, 0.9)}
         dual_flash[d] = (ops.flash_attention(*ls), ops.flash_attention(*be))
-    mm_out = {d: ops.dual_tenant_matmul(*a, sm_be=0.3) for d, a in mm.items()}
+    mm_out = {key: ops.dual_tenant_matmul(*a, sm_be=0.3)
+              for key, a in mm.items()}
     scattered = {t: ops.spt_scatter(xs[t], spts[t], n_arena) for t in xs}
     # one device arena holding both tenants (their pages are disjoint)
     be_page = torch.zeros(n_arena, dtype=torch.bool, device=dev)
@@ -1085,7 +1097,8 @@ def sgdrc_phase(torch, seed):
     # call the CUDA-core body
     n_bf16 = {
         "flash_attention": sum(c["dname"] == "bfloat16" for c in flash) + 2,
-        "dual_tenant_attention": 3, "dual_tenant_matmul": 1}
+        "dual_tenant_attention": 3,
+        "dual_tenant_matmul": sum(d == "bfloat16" for _, d in mm)}
     for name, n in n_bf16.items():
         require(routes[name] == {"wgmma": n, "simt": counts[name] - n},
                 f"{name}: routes {routes[name]}, want {n} bf16 calls on "
@@ -1156,18 +1169,37 @@ def sgdrc_phase(torch, seed):
             f"and across sm_be 0.1/0.3/0.9; vs plain max abs {err:.3e}, "
             f"late rows' relative L2 {late:.3e}")
     mm_err = {}
-    for d, a in mm.items():
+    for (sh, d), a in mm.items():
         rtol, atol = MATMUL_TOL[d]
         errs = []
-        for o, w in zip(mm_out[d], ref.ref_dual_tenant_matmul(*a)):
+        for o, w in zip(mm_out[sh, d], ref.ref_dual_tenant_matmul(*a)):
             errs.append((o.float() - w.float()).abs().max().item())
             require(torch.allclose(o.float(), w.float(), rtol=rtol,
                                    atol=atol),
-                    f"dual_tenant_matmul {d}: not within rtol {rtol} atol "
-                    f"{atol} (max abs {errs[-1]})")
-        mm_err[d] = max(errs)
-        log(f"  dual_tenant_matmul {d}: vs plain max abs {mm_err[d]:.3e} "
-            f"(rtol {rtol}, atol {atol})")
+                    f"dual_tenant_matmul {sh} {d}: not within rtol {rtol} "
+                    f"atol {atol} (max abs {errs[-1]})")
+        mm_err[sh, d] = max(errs)
+        log(f"  dual_tenant_matmul {sh} {d}: vs plain max abs "
+            f"{mm_err[sh, d]:.3e} (rtol {rtol}, atol {atol})")
+    # a tenant's bits depend neither on sm_be nor on the other tenant: each
+    # output is one sum over k in order, whatever runs beside it
+    for (sh, d), (a_ls, b_ls, a_be, b_be) in mm.items():
+        if d == "float16":
+            continue
+        o_ls, o_be = mm_out[sh, d]
+        for sm in (0.1, 0.9):
+            l, b = ops.dual_tenant_matmul(a_ls, b_ls, a_be, b_be, sm_be=sm)
+            require(torch.equal(l, o_ls) and torch.equal(b, o_be),
+                    f"dual_tenant_matmul {sh} {d}: sm_be {sm} != sm_be 0.3")
+        alone_ls = ops.dual_tenant_matmul(a_ls, b_ls, a_be[:0], b_be)[0]
+        alone_be = ops.dual_tenant_matmul(a_ls[:0], b_ls, a_be, b_be)[1]
+        require(torch.equal(alone_ls, o_ls),
+                f"dual_tenant_matmul {sh} {d}: LS != LS with BE empty")
+        require(torch.equal(alone_be, o_be),
+                f"dual_tenant_matmul {sh} {d}: BE != BE with LS empty")
+        log(f"  dual_tenant_matmul {sh} {d}: each tenant's output equal bit "
+            "for bit across sm_be 0.1/0.3/0.9 and with the other tenant "
+            "empty")
     lib_arena = torch.zeros_like(shared)
     for t in xs:
         lib_arena.index_copy_(0, spts[t].long(), xs[t])
@@ -1234,28 +1266,38 @@ def sgdrc_phase(torch, seed):
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bound[0], bound_by=bound[1],
                 routes=routes["dual_tenant_attention"])
-    for d, a in mm.items():
+    mm_rows = {}
+    for (sh, d), a in mm.items():
         a_ls, b_ls, a_be, b_be = a
+        (K, N), M = mm_shapes[sh], a_ls.shape[0] + a_be.shape[0]
         ms = cuda_ms(lambda: ops.dual_tenant_matmul(*a, sm_be=0.3), iters=10)
         host = host_ms(lambda: ops.dual_tenant_matmul(*a, sm_be=0.3),
                        iters=10)
         plain = cuda_ms(lambda: ref.ref_dual_tenant_matmul(*a), iters=5)
         lib = cuda_ms(lambda: (torch.matmul(a_ls, b_ls),
                                torch.matmul(a_be, b_be)))
-        M = a_ls.shape[0] + a_be.shape[0]
-        nbytes = (M * Kd + 2 * Kd * Nf + M * Nf) * a_ls.element_size()
-        bound = _bound(nbytes, 2.0 * M * Kd * Nf, d)
-        log(f"  dual_tenant_matmul {d:9s} "
-            f"route={dtm.route(a_ls.dtype, Kd, Nf)} "
-            f"max_abs_err={mm_err[d]:.3e} ms={ms:.4f} "
-            f"TFLOP/s={2.0 * M * Kd * Nf / ms / 1e9:.1f} host_ms={host:.4f} "
+        nbytes = (M * K + 2 * K * N + M * N) * a_ls.element_size()
+        flops = 2.0 * M * K * N
+        bound = _bound(nbytes, flops, d)
+        log(f"  dual_tenant_matmul {sh} {d:9s} "
+            f"route={dtm.route(a_ls.dtype, K, N)} "
+            f"max_abs_err={mm_err[sh, d]:.3e} ms={ms:.4f} "
+            f"TFLOP/s={flops / ms / 1e9:.1f} host_ms={host:.4f} "
             f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-            f"bound_ms={bound[0]:.4f} ({bound[1]})")
-        if d == "bfloat16":
-            results["dual_tenant_matmul"] = dict(
-                max_abs_err=mm_err[d], ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound[0], bound_by=bound[1],
-                routes=routes["dual_tenant_matmul"])
+            f"bound_ms={bound[0]:.4f} ({bound[1]}) "
+            f"of_bound={bound[0] / ms:.3f} vs_library={ms / lib:.3f}")
+        mm_rows[sh, d] = dict(
+            max_abs_err=mm_err[sh, d], ms=ms, host_ms=host, plain_ms=plain,
+            library_ms=lib, bound_ms=bound[0], bound_by=bound[1],
+            of_bound=bound[0] / ms, vs_library=ms / lib)
+    # the gate projection in bf16 is the kernel's row; f32, f16 and the
+    # down projection beside it
+    results["dual_tenant_matmul"] = dict(
+        mm_rows["gate", "bfloat16"], routes=routes["dual_tenant_matmul"],
+        float32=mm_rows["gate", "float32"],
+        float16=mm_rows["gate", "float16"],
+        down_projection={d: mm_rows["down", d]
+                         for d in ("bfloat16", "float32", "float16")})
     page_bytes = page * 2
     for t in ("ls", "be"):
         x, spt = xs[t], spts[t]
@@ -1555,9 +1597,12 @@ def main():
     log(f"  nvcc sm_90a build of {len(_build.SOURCES)} sources: "
         f"{secs:.1f}s")
     for name, text in _build.build_logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  [{name}] {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  [{name}] {entry}: {line.split(':', 1)[-1].strip()}")
 
     log("== phase 3: kernels vs plain versions")
     kres = kernel_phase(torch, args.seed)

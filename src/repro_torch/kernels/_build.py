@@ -42,8 +42,8 @@ FLASH_ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _F, _P]
 # dtype, B_ls, B_be, S, H, Hkv, D, n_units, wgmma; scale; stream
 DUAL_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _P]
 # dual_tenant_matmul.cu: a, b, out of LS then BE; order, ticket; dtype,
-# M_ls, M_be, K, N, n_order, wgmma; stream
-DUAL_MATMUL_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]
+# M_ls, M_be, K, N, n_order, wgmma, copy width; stream
+DUAL_MATMUL_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 # spt_gather.cu: src, dst, spt; n, row bytes, src rows, dst rows; stream
 SPT_ARGTYPES = [_P] * 3 + [_L] * 4 + [_P]
 # ssd_scan.cu: q, k, v, log_w, y; dtype, wdtype, B, T, H, K, P, L;

@@ -6,12 +6,14 @@
 // output type. Work units are (tile row, n-block) pairs: the wrapper
 // uploads dual_tenant_matmul._schedule's order of (owner, tile row) pairs
 // over tile rows of BM = 128 rows (both routes), and unit u is n-block
-// u % n_nb of order entry u / n_nb (n-blocks of 128 columns on the simt
+// u % n_nb of order entry u / n_nb (n-blocks of 96 columns on the simt
 // route, 256 on the wgmma route), so a tile row's n-blocks start
 // together, as the TPU grid's (order, n, k) axes run them. The grid is
 // persistent (as many blocks as fit on the card at once), each block
 // taking the next unit from a global atomic ticket: units start in
-// schedule order, and the sm_be quota governs start order only.
+// schedule order, and the sm_be quota governs start order only. Each
+// output element is one sum over k in order (no split-K, no atomics), so
+// a tenant's bits depend neither on sm_be nor on the other tenant's rows.
 //
 // What bounds it on the card: operations (2 * M * K * N per product; at the
 // widths chip_smoke.py runs, some hundreds of flops per byte moved, above
@@ -36,11 +38,36 @@
 //   block per SM, a persistent grid of min(units, SMs) blocks. The
 //   epilogue rounds each output once to bf16 and stores it with bounds
 //   checks at the ragged M and N edges.
-//   simt (f32, f16, and bf16 with K or N not a multiple of 8): CUDA cores.
-//   128 x 128 output tiles, 8-deep K slices staged through shared memory as
-//   f32, an 8 x 8 register tile a thread of f32 FMAs (f32 keeps the
-//   reference's 1e-5 tolerance, which TF32 would break).
+//   simt (f32, f16, and bf16 with K or N not a multiple of 8): f32 FMAs on
+//   CUDA cores (f32 keeps the reference's 1e-5 tolerance, which TF32 would
+//   break; 67 TFLOP/s on an H100). Each SM scheduler issues one
+//   instruction a cycle and does one warp's FMA a cycle, so every other
+//   instruction costs an FMA's slot; and the SM's shared memory delivers
+//   128 bytes a cycle to its 128 FMA lanes, so a register tile that reads
+//   one byte an FMA (8 x 8) can at best tie it. The design:
+//   - Units of 128 x 96 outputs (Tile below), 128 threads, each thread an
+//     8 x 12 register tile: 0.83 bytes of shared-memory reads an FMA, all
+//     of them 8- or 16-byte loads. Warps are 4 (m) x 8 (n) threads; thread
+//     (tm, tn) owns rows tm + 16 i and columns 4 tn + c + 32 q, so a warp's
+//     A reads hit 4 rows of A's tile (16 bytes past a multiple of 128
+//     bytes apart: no bank conflict) and its B reads 8 adjacent quads.
+//   - k tiles of 64 bytes a row in a ring of 4 stages in dynamic shared
+//     memory, in the input type (f16 and bf16 widen to f32 when read into
+//     registers), filled by cp.async and zero-filled past M, N and K. One
+//     barrier a k tile: the tile 3 ahead is issued once every thread is
+//     done with the slot it refills. The ring runs across units: a block
+//     takes its next ticket when it starts loading a unit, so the next
+//     unit's first tiles load during the current unit's last ones.
+//   - Copies 16 bytes wide where the host (COPY, the wrapper's
+//     copy_width) finds K * itemsize, N * itemsize and every base a
+//     multiple of 16; else 4-byte cp.async, or plain 2-byte loads for f16
+//     and bf16 with an odd K or N. The same body, chosen before the launch.
+//   - 96-wide units at three blocks an SM keep the last wave nearly full at
+//     both of the model's projection shapes (see Tile).
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 #include "dtypes.cuh"
 #include "hopper.cuh"
@@ -48,9 +75,7 @@
 namespace sgdrc {
 namespace gemm {
 
-constexpr int BM = 128, BN = 128, BK = 8;
-constexpr int kThreads = 256;  // a 16 x 16 grid (ty, tx)
-constexpr int TM = BM / 16, TN = BN / 16;
+constexpr int BM = 128;
 
 struct Operands {
   const void* a;
@@ -66,82 +91,328 @@ struct DualArgs {
   int n_order, K, N;
 };
 
+namespace simt {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
+
+// The unit's tile for element type T. BN = 96 output columns of the BM =
+// 128 rows; each thread an 8 x 12 register tile (8 rows, NQ = 3 quads of
+// 4 columns), so 128 threads. k tiles of 64 bytes a row (BK = 16 f32, 32
+// f16 or bf16) in a ring of 4 stages, 64 KB for every T; A is read 8
+// bytes (KA k) at a time. Three blocks an SM: the launch bounds hold ptxas
+// to 168 registers a thread. Waves, by the tile: phase 7's gate projection
+// has 18 tile rows x 64 n-blocks = 1152 units on 396 blocks (2.91 waves),
+// its down projection 18 x 22 = 396 units, one wave (128 x 128 units at
+// two blocks an SM would be 3.27 and 1.09 waves).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) dual_gemm(DualArgs g) {
-  __shared__ float a_s[BK][BM + 4];  // A tile, transposed; +4: no conflicts
-  __shared__ float b_s[BK][BN];
-  __shared__ int unit_s;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int K = g.K, N = g.N;
-  const int n_nb = (N + BN - 1) / BN;
-  const int n_units = g.n_order * n_nb;
-  while (true) {
-    if (tid == 0) unit_s = atomicAdd(g.ticket, 1);
-    __syncthreads();
-    const int u = unit_s;
-    __syncthreads();  // every thread has read unit_s before it is reused
-    if (u >= n_units) break;
-    const int oi = u / n_nb, nb = u % n_nb;
-    const bool be = g.order[2 * oi] != 0;
-    const Operands op{be ? g.be.a : g.ls.a, be ? g.be.b : g.ls.b,
-                      be ? g.be.out : g.ls.out, be ? g.be.M : g.ls.M};
-    const int m0 = g.order[2 * oi + 1] * BM, n0 = nb * BN;
-    const T* A = static_cast<const T*>(op.a);
-    const T* B = static_cast<const T*>(op.b);
+struct Tile {
+  static constexpr int BN = 96, NQ = 3, TN = 4 * NQ;
+  static constexpr int BK = 64 / sizeof(T), KA = 8 / sizeof(T);
+  static constexpr int STAGES = 4, MIN_BLOCKS = 3;
+  static constexpr int kThreads = 16 * BN / TN;  // (BM / 8) x (BN / TN)
+  // A's row stride in elements: 16 bytes past the row, so the 4 rows a
+  // warp reads at one k sit in different banks
+  static constexpr int SA = BK + 16 / sizeof(T);
+  static constexpr int A_ELEMS = BM * SA, STAGE = A_ELEMS + BK * BN;
+  static constexpr int kTickets = 8;  // > STAGES: a slot per unit in flight
+  static constexpr int SMEM =
+      STAGES * STAGE * (int)sizeof(T) + kTickets * (int)sizeof(int);
+};
 
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+// 4 bytes global -> shared through L1; zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 
-    for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-      for (int e = 0; e < BM * BK / kThreads; ++e) {
-        const int i = tid + e * kThreads, r = i / BK, kk = i % BK;
-        const int gm = m0 + r, gk = k0 + kk;
-        a_s[kk][r] = (gm < op.M && gk < K)
-                         ? to_f32(A[(int64_t)gm * K + gk])
-                         : 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < BK * BN / kThreads; ++e) {
-        const int i = tid + e * kThreads, kk = i / BN, c = i % BN;
-        const int gk = k0 + kk, gn = n0 + c;
-        b_s[kk][c] = (gk < K && gn < N) ? to_f32(B[(int64_t)gk * N + gn])
-                                        : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float ar[TM], br[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) ar[i] = a_s[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) br[j] = b_s[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
+// One copy of COPY bytes; COPY == sizeof(T) == 2 is a plain load.
+template <typename T, int COPY>
+__device__ __forceinline__ void copy(T* dst, const T* src, bool valid) {
+  if constexpr (COPY == 16) {
+    cp_async16(dst, src, valid);
+  } else if constexpr (COPY == 4) {
+    cp_async4(dst, src, valid);
+  } else {
+    static_assert(COPY == sizeof(T), "copy width");
+    *dst = valid ? *src : from_f32<T>(0.f);
+  }
+}
+
+// N adjacent elements of T in shared memory (N * sizeof(T) bytes, aligned
+// to that), read with one load and widened to f32 at use.
+template <typename T, int N>
+struct Vec {
+  static constexpr int W = N * sizeof(T) / 4;  // 32-bit words
+  static_assert(W == 2 || W == 4, "vector width");
+  uint32_t w[W];
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (W == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
     }
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[i]);
+    } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      const uint32_t x = w[i / 2];  // bf16 is f32's upper half
+      return __uint_as_float(i % 2 ? x & 0xffff0000u : x << 16);
+    } else {
+      const uint32_t x = w[i / 2];
+      return __half2float(
+          __ushort_as_half(static_cast<unsigned short>(i % 2 ? x >> 16 : x)));
+    }
+  }
+};
 
-    T* C = static_cast<T*>(op.out);
+// Register row i (< 8) of thread row tm (< 16) is row tm + 16 i of the
+// unit; quad q (< NQ) of thread column tn starts at column col_of(tn, q).
+template <typename T>
+__device__ __forceinline__ int col_of(int tn, int q) {
+  return Tile<T>::BN / Tile<T>::NQ * q + 4 * tn;
+}
+
+struct Unit {
+  const void* a;
+  const void* b;
+  void* out;
+  int M, m0, n0;
+};
+
+__device__ __forceinline__ Unit unit_of(const DualArgs& g, int u, int n_nb,
+                                        int BN) {
+  const int oi = u / n_nb;
+  const bool be = g.order[2 * oi] != 0;
+  return {be ? g.be.a : g.ls.a, be ? g.be.b : g.ls.b,
+          be ? g.be.out : g.ls.out, be ? g.be.M : g.ls.M,
+          g.order[2 * oi + 1] * BM, (u % n_nb) * BN};
+}
+
+// Issue the copies of k tile [k0, k0 + BK) of unit `un` into one stage:
+// A's tile row-major (rows SA apart), B's [BK, BN]. The narrow copies'
+// loops stay rolled: unrolled, their addresses would spill.
+template <typename T, int COPY>
+__device__ __forceinline__ void load_tile(T* stage, const Unit& un, int k0,
+                                          int K, int N, int tid) {
+  using L = Tile<T>;
+  constexpr int CE = COPY / sizeof(T), NT = L::kThreads;
+  const T* A = static_cast<const T*>(un.a);
+  const T* B = static_cast<const T*>(un.b);
+  constexpr int CPR_A = L::BK / CE, NA = BM * CPR_A;
+  constexpr int UA = COPY == 16 ? (NA + NT - 1) / NT : 1;
+  constexpr int CPR_B = L::BN / CE, NB = L::BK * CPR_B;
+  constexpr int UB = COPY == 16 ? (NB + NT - 1) / NT : 1;
+#pragma unroll (UA)
+  for (int e = 0; e < (NA + NT - 1) / NT; ++e) {
+    const int c = tid + e * NT;
+    if (NA % NT == 0 || c < NA) {
+      const int r = c / CPR_A, kc = (c % CPR_A) * CE;
+      const int gm = un.m0 + r, gk = k0 + kc;
+      const bool ok = gm < un.M && gk < K;
+      copy<T, COPY>(stage + r * L::SA + kc,
+                    A + (ok ? (int64_t)gm * K + gk : 0), ok);
+    }
+  }
+  T* Bs = stage + L::A_ELEMS;
+#pragma unroll (UB)
+  for (int e = 0; e < (NB + NT - 1) / NT; ++e) {
+    const int c = tid + e * NT;
+    if (NB % NT == 0 || c < NB) {
+      const int kr = c / CPR_B, nc = (c % CPR_B) * CE;
+      const int gk = k0 + kr, gn = un.n0 + nc;
+      const bool ok = gk < K && gn < N;
+      copy<T, COPY>(Bs + kr * L::BN + nc,
+                    B + (ok ? (int64_t)gk * N + gn : 0), ok);
+    }
+  }
+}
+
+// acc[i][4 q + c] += sum over the stage's BK k of A[tm + 16 i][k] *
+// B[k][col_of(tn, q) + c], k in order. The loop over KA-deep steps is kept
+// rolled: unrolled, ptxas hoists the next steps' loads and spills.
+template <typename T>
+__device__ __forceinline__ void mma_tile(const T* stage, int tm, int tn,
+                                         float (&acc)[8][Tile<T>::TN]) {
+  using L = Tile<T>;
+  constexpr int KA = L::KA, NQ = L::NQ;
+  const T* Bs = stage + L::A_ELEMS;
+#pragma unroll 1
+  for (int kq = 0; kq < L::BK; kq += KA) {
+    float a[KA][8];  // a[kk][i] = A[tm + 16 i][kq + kk]
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = m0 + ty + 16 * i;
-      if (gm >= op.M) continue;
+    for (int i = 0; i < 8; ++i) {
+      Vec<T, KA> v;
+      v.load(stage + (tm + 16 * i) * L::SA + kq);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int gn = n0 + tx + 16 * j;
-        if (gn < N) C[(int64_t)gm * N + gn] = from_f32<T>(acc[i][j]);
+      for (int kk = 0; kk < KA; ++kk) a[kk][i] = v[kk];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KA; ++kk) {
+      Vec<T, 4> b[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        b[q].load(Bs + (kq + kk) * L::BN + col_of<T>(tn, q));
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[i][4 * q + c] = fmaf(a[kk][i], b[q][c], acc[i][4 * q + c]);
+    }
+  }
+}
+
+// Two outputs rounded to a 2-byte T, packed low then high.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const T h[2] = {from_f32<T>(lo), from_f32<T>(hi)};
+  uint32_t w;
+  memcpy(&w, h, sizeof(w));
+  return w;
+}
+
+// Round the unit's outputs once to T and store them, within M and N.
+template <typename T, int COPY>
+__device__ __forceinline__ void store_tile(
+    const Unit& un, int N, int tm, int tn,
+    const float (&acc)[8][Tile<T>::TN]) {
+  T* C = static_cast<T*>(un.out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = un.m0 + tm + 16 * i;
+    if (gm >= un.M) continue;
+#pragma unroll
+    for (int q = 0; q < Tile<T>::NQ; ++q) {
+      const int gn = un.n0 + col_of<T>(tn, q);
+      T* p = C + (int64_t)gm * N + gn;
+      const float v0 = acc[i][4 * q], v1 = acc[i][4 * q + 1],
+                  v2 = acc[i][4 * q + 2], v3 = acc[i][4 * q + 3];
+      if constexpr (COPY == 16) {  // N a multiple of 16 bytes: whole quads
+        if (gn >= N) continue;
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float4*>(p) = make_float4(v0, v1, v2, v3);
+        } else {
+          *reinterpret_cast<uint2*>(p) =
+              make_uint2(pack2<T>(v0, v1), pack2<T>(v2, v3));
+        }
+      } else {
+        const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (gn + c < N) p[c] = from_f32<T>(v[c]);
       }
     }
   }
 }
 
+template <typename T, int COPY>
+__global__ void __launch_bounds__(Tile<T>::kThreads, Tile<T>::MIN_BLOCKS)
+    dual_gemm_simt(DualArgs g) {
+  using L = Tile<T>;
+  constexpr int STAGES = L::STAGES, R = L::kTickets;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  int* tickets = reinterpret_cast<int*>(ring + STAGES * L::STAGE);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // warps of 4 (m) x 8 (n) threads: a warp's B reads are 8 adjacent quads
+  const int tm = warp % 4 * 4 + lane / 8, tn = warp / 4 * 8 + lane % 8;
+  const int K = g.K, N = g.N;
+  const int n_nb = (N + L::BN - 1) / L::BN, n_units = g.n_order * n_nb;
+  const int k_tiles = max(1, (K + L::BK - 1) / L::BK);
+
+  if (tid == 0) tickets[0] = atomicAdd(g.ticket, 1);
+  __syncthreads();
+  // loader: unit l_unit (the l_seq-th this block took), k tile l_t;
+  // products: unit c_unit, k tile c_t, STAGES - 1 tiles behind
+  int l_unit = tickets[0], l_seq = 0, l_t = 0;
+  int c_unit = l_unit, c_seq = 0, c_t = 0;
+  if (c_unit >= n_units) return;
+
+  // Issue the next k tile into `slot` (nothing once the tickets run out);
+  // one cp.async group a call either way, so the waits count tiles.
+  auto load_next = [&](int slot) {
+    if (l_unit < n_units) {
+      if (l_t == 0 && tid == 0)
+        tickets[(l_seq + 1) % R] = atomicAdd(g.ticket, 1);
+      load_tile<T, COPY>(ring + slot * L::STAGE,
+                         unit_of(g, l_unit, n_nb, L::BN), l_t * L::BK, K, N,
+                         tid);
+      if (++l_t == k_tiles) {
+        l_t = 0;
+        __syncthreads();  // every thread sees thread 0's next ticket
+        l_unit = tickets[++l_seq % R];
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][L::TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < L::TN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_next(s);
+  for (int slot = 0;; slot = (slot + 1) % STAGES) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of the tile landed
+    __syncthreads();  // everyone's, and the slot refilled below is free
+    load_next((slot + STAGES - 1) % STAGES);
+    mma_tile<T>(ring + slot * L::STAGE, tm, tn, acc);
+    if (++c_t < k_tiles) continue;
+    store_tile<T, COPY>(unit_of(g, c_unit, n_nb, L::BN), N, tm, tn, acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < L::TN; ++j) acc[i][j] = 0.f;
+    c_t = 0;
+    c_unit = tickets[++c_seq % R];  // the loader's crossing barrier wrote it
+    if (c_unit >= n_units) break;
+  }
+}
+
+// The body's launch: a persistent grid of as many blocks as fit.
+template <typename T, int COPY>
+cudaError_t launch(const DualArgs& g, cudaStream_t st) {
+  using L = Tile<T>;
+  auto kernel = dual_gemm_simt<T, COPY>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = hopper::resident_blocks(kernel, L::kThreads, L::SMEM,
+                                g.n_order * ((g.N + L::BN - 1) / L::BN),
+                                &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, L::kThreads, L::SMEM, st>>>(g);
+  return cudaGetLastError();
+}
+
+// `copy` (16, 4, or 2 for 2-byte types) picks the instance.
+template <typename T>
+cudaError_t launch_copy(const DualArgs& g, int copy, cudaStream_t st) {
+  if (copy == 16) return launch<T, 16>(g, st);
+  if (copy == 4) return launch<T, 4>(g, st);
+  if constexpr (sizeof(T) == 2) {
+    if (copy == 2) return launch<T, 2>(g, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace simt
 
 namespace wg {
 
@@ -310,14 +581,16 @@ inline cudaError_t make_matrix_map(CUtensorMap* map, const void* base,
 extern "C" int sgdrc_matmul_tile(void) { return sgdrc::gemm::BM; }
 
 // `wgmma` 1 takes the tensor-core route (bf16 only, K and N multiples of
-// 8, 16-byte aligned operands), 0 the CUDA-core route.
+// 8, 16-byte aligned operands), 0 the CUDA-core route, whose copies are
+// `copy` bytes wide (16, 4, or 2 for f16 and bf16): K and N times the
+// element size and every base must be multiples of it.
 extern "C" int sgdrc_dual_tenant_matmul(const void* a_ls, const void* b_ls,
                                         void* out_ls, const void* a_be,
                                         const void* b_be, void* out_be,
                                         const void* order, void* ticket,
                                         int dtype, int M_ls, int M_be, int K,
                                         int N, int n_order, int wgmma,
-                                        void* stream) {
+                                        int copy, void* stream) {
   using namespace sgdrc::gemm;
   if (n_order == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -355,6 +628,13 @@ extern "C" int sgdrc_dual_tenant_matmul(const void* a_ls, const void* b_ls,
         K, N);
     return static_cast<int>(cudaGetLastError());
   }
+  const int item = dtype == 0 ? 4 : 2;
+  const void* ptrs[6] = {a_ls, b_ls, out_ls, a_be, b_be, out_be};
+  bool ok = (copy == 16 || copy == 4 || copy == 2) && copy >= item &&
+            (int64_t)K * item % copy == 0 && (int64_t)N * item % copy == 0;
+  for (const void* p : ptrs)
+    ok = ok && reinterpret_cast<uintptr_t>(p) % copy == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const DualArgs g{{a_ls, b_ls, out_ls, M_ls},
                    {a_be, b_be, out_be, M_be},
                    static_cast<const int*>(order),
@@ -364,11 +644,6 @@ extern "C" int sgdrc_dual_tenant_matmul(const void* a_ls, const void* b_ls,
                    N};
   return static_cast<int>(sgdrc::with_dtype(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    auto kernel = dual_gemm<T>;
-    cudaError_t e = sgdrc::hopper::resident_blocks(
-        kernel, kThreads, 0, n_order * ((N + BN - 1) / BN), &blocks);
-    if (e != cudaSuccess) return e;
-    kernel<<<blocks, kThreads, 0, st>>>(g);
-    return cudaGetLastError();
+    return simt::launch_copy<T>(g, copy, st);
   }));
 }

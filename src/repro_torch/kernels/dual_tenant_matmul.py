@@ -20,7 +20,8 @@ the launch: ``"wgmma"`` (tensor cores, TMA-fed) for bf16 whose K and N are
 multiples of 8, so that every row stride TMA reads is a multiple of 16
 bytes; ``"simt"`` (f32 FMAs on CUDA cores) for f32, f16, and bf16 of any
 other K or N. A launch that fails raises; nothing retries on the other
-route.
+route. :func:`copy_width` picks how wide the ``"simt"`` body's copies are,
+also before the launch.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain version. The wrapper counts its launches in
@@ -41,6 +42,18 @@ def route(dtype, K: int, N: int) -> str:
     and N multiples of 8, ``"simt"`` otherwise."""
     ok = dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
     return "wgmma" if ok else "simt"
+
+
+def copy_width(itemsize: int, K: int, N: int, *addresses: int) -> int:
+    """Bytes each copy of the ``"simt"`` body moves into shared memory: 16
+    where ``K * itemsize``, ``N * itemsize`` and every address are multiples
+    of 16, else 4 where they are multiples of 4, else ``itemsize`` (plain
+    loads of 2-byte types with an odd K or N)."""
+    for width in (16, 4):
+        if all(x % width == 0 for x in (K * itemsize, N * itemsize,
+                                        *addresses)):
+            return width
+    return itemsize
 
 
 def _schedule(n_ls: int, n_be: int, sm_be: float, round_tiles: int = 8):
@@ -124,11 +137,11 @@ def dual_tenant_matmul(a_ls, b_ls, a_be, b_be, *, sm_be=0.3, block_m=128,
     o_ls = torch.empty(m_ls, N, dtype=a_ls.dtype, device=dev)
     o_be = torch.empty(m_be, N, dtype=a_be.dtype, device=dev)
     ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in (a_ls, b_ls, o_ls, a_be, b_be, o_be)]
     err = entry(name)(
-        a_ls.data_ptr(), b_ls.data_ptr(), o_ls.data_ptr(), a_be.data_ptr(),
-        b_be.data_ptr(), o_be.data_ptr(), order.data_ptr(),
-        ticket.data_ptr(), DTYPE_CODES[a_ls.dtype], m_ls, m_be, K, N,
-        order.numel() // 2, int(way == "wgmma"), stream_of(dev))
+        *ptrs, order.data_ptr(), ticket.data_ptr(), DTYPE_CODES[a_ls.dtype],
+        m_ls, m_be, K, N, order.numel() // 2, int(way == "wgmma"),
+        copy_width(a_ls.element_size(), K, N, *ptrs), stream_of(dev))
     check_launch(name, err)
     count_launch(dual_tenant_matmul, way)
     return o_ls, o_be

@@ -385,6 +385,19 @@ def test_matmul_route(dtype, K, N, want):
     assert dtm.route(getattr(torch, dtype), K, N) == want
 
 
+@pytest.mark.parametrize("itemsize,K,N,addresses,want", [
+    (4, 2048, 6144, (0, 256, 4096), 16), (4, 70, 200, (0, 256), 4),
+    (4, 72, 200, (0, 8), 4), (4, 72, 202, (0,), 4),
+    (2, 72, 200, (0, 256), 16), (2, 70, 200, (0,), 4),
+    (2, 71, 200, (0,), 2), (2, 72, 201, (0,), 2), (2, 72, 200, (6,), 2),
+    (2, 64, 8, (4, 512), 4)])
+def test_matmul_copy_width(itemsize, K, N, addresses, want):
+    """The CUDA-core body copies 16 bytes at a time only where every row
+    stride and base is a multiple of 16, else 4 bytes, else (2-byte types
+    with an odd K, N or base) one element."""
+    assert dtm.copy_width(itemsize, K, N, *addresses) == want
+
+
 def test_reset_clears_route_counts():
     fa.flash_attention.routes["wgmma"] = 3
     ops.reset_launch_counts()
@@ -420,6 +433,9 @@ def _cuda_qkv(cuda, seed, B, S, H, Hkv, D, dtype):
 # late row's output: each (batch row, head)'s relative L2 error over the
 # rows [S/2, S), as chip_smoke.py's phase 7 holds it.
 LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# dual-tenant matmul rtol (atol 1e-4): f32 the reference's; bf16 and f16
+# one output rounding apart (2^-7, 2^-10 relative), as chip_smoke.py holds it
+MATMUL_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7, "float16": 2 ** -10}
 
 
 def _assert_late_rows(got, want, dtype):
@@ -475,14 +491,19 @@ class TestCudaKernels:
                                    atol=tol)
         _assert_late_rows(w2, want, dtype)
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     @pytest.mark.parametrize("m_ls,m_be,K,N", [(128, 256, 128, 128),
                                                (100, 300, 72, 200),
                                                (100, 300, 70, 200),
-                                               (0, 130, 64, 8)])
+                                               (100, 300, 71, 200),
+                                               (300, 200, 1024, 200),
+                                               (0, 130, 64, 8),
+                                               (130, 0, 1024, 96)])
     def test_dual_matmul(self, cuda, dtype, m_ls, m_be, K, N):
-        """Aligned ragged bf16 (K 72, N 200) on the tensor cores, K 70 on
-        the CUDA cores; an empty LS tenant on either."""
+        """Aligned ragged bf16 (K 72, N 200) on the tensor cores, K 70 and
+        71 on the CUDA cores (4-byte copies, and one-element copies of f16
+        and bf16 at K 71); K 1024 cycles the CUDA-core body's ring many
+        times, N 200 ends inside an n-block; an empty tenant on either."""
         g = torch.Generator(device=cuda).manual_seed(3)
         dt = getattr(torch, dtype)
         a_ls, a_be = (torch.randn(m, K, generator=g, device=cuda).to(dt)
@@ -496,11 +517,31 @@ class TestCudaKernels:
         got = ops.dual_tenant_matmul(a_ls, b_ls, a_be, b_be, sm_be=0.3)
         assert dtm.dual_tenant_matmul.routes[way] == before + 1
         want = ref.ref_dual_tenant_matmul(a_ls, b_ls, a_be, b_be)
-        # bf16: one output rounding apart (2^-7 relative)
-        rtol = 1e-5 if dtype == "float32" else 2 ** -7
         for o, w in zip(got, want):
-            torch.testing.assert_close(o.float(), w.float(), rtol=rtol,
-                                       atol=1e-4)
+            torch.testing.assert_close(o.float(), w.float(),
+                                       rtol=MATMUL_RTOL[dtype], atol=1e-4)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("K,N", [(256, 200), (71, 200)])
+    def test_dual_matmul_tenants_independent(self, cuda, dtype, K, N):
+        """Each tenant's output is the same bit for bit under sm_be 0.1,
+        0.3 and 0.9 and when the other tenant has no rows: every output is
+        one sum over k in order, whatever else the launch runs."""
+        g = torch.Generator(device=cuda).manual_seed(6)
+        dt = getattr(torch, dtype)
+        a_ls, a_be = (torch.randn(m, K, generator=g, device=cuda).to(dt)
+                      for m in (300, 500))
+        b_ls, b_be = (torch.randn(K, N, generator=g, device=cuda).to(dt)
+                      for _ in range(2))
+        o_ls, o_be = ops.dual_tenant_matmul(a_ls, b_ls, a_be, b_be,
+                                            sm_be=0.3)
+        for sm_be in (0.1, 0.9):
+            l, b = ops.dual_tenant_matmul(a_ls, b_ls, a_be, b_be, sm_be=sm_be)
+            assert torch.equal(l, o_ls) and torch.equal(b, o_be), sm_be
+        assert torch.equal(
+            ops.dual_tenant_matmul(a_ls, b_ls, a_be[:0], b_be)[0], o_ls)
+        assert torch.equal(
+            ops.dual_tenant_matmul(a_ls[:0], b_ls, a_be, b_be)[1], o_be)
 
     @pytest.mark.parametrize("dtype,width", [("bfloat16", 512),
                                              ("float32", 100),
