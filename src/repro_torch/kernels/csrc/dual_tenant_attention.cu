@@ -15,9 +15,11 @@
 // no window, no softcap: the very code of flash_attention.cu, so each
 // tenant's output equals flash_attention's bit for bit and does not depend
 // on sm_be. The route (`wgmma`: bf16 on flash_wgmma.cuh's tensor-core body;
-// else flash_core.cuh's CUDA-core body) fixes BQ, the block size and the
+// else flash_simt.cuh's CUDA-core body) fixes BQ, the block size and the
 // shared memory (flash::launch), and the wrapper schedules over the
-// route's BQ (sgdrc_flash_tile_rows).
+// route's BQ (sgdrc_flash_tile_rows). On the CUDA-core body query tile r %
+// nq counts from the last, so the units of a (b, h) start heaviest first,
+// as flash_attention.cu's blocks do, and the light ones fill the tail.
 //
 // What bounds it on the card: operations, as flash_attention (4 * D flops
 // per visible causal (query, key) pair, both tenants together).
@@ -49,22 +51,24 @@ __device__ __forceinline__ int next_unit(int* ticket, int* unit_s) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dual_kernel(DualArgs a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 1) dual_kernel(DualArgs a) {
+  extern __shared__ __align__(16) uint8_t simt_smem[];
   __shared__ int unit_s;
+  init<T, D>(simt_smem);
   const int S = a.ls.S, H = a.ls.H;
-  const int nq = (S + Tile<D>::BQ - 1) / Tile<D>::BQ;
+  const int nq = (S + BQ - 1) / BQ;
+  Pipe pipe;
   while (true) {
     const int t = next_unit(a.ticket, &unit_s);
     if (t >= a.n_units) break;
     const bool be = a.order[2 * t] != 0;
     const int r = a.order[2 * t + 1];
-    const int b = r / (H * nq), h = (r / nq) % H, qi = r % nq;
+    const int b = r / (H * nq), h = (r / nq) % H, qi = nq - 1 - r % nq;
     // select field by field: a whole-struct select goes through local memory
     const Heads x{be ? a.be.q : a.ls.q, be ? a.be.k : a.ls.k,
                   be ? a.be.v : a.ls.v, be ? a.be.out : a.ls.out, S, H,
                   a.ls.Hkv};
-    tile<T, D>(x, b, h, qi * Tile<D>::BQ, true, 0, 0.f, a.scale, smem);
+    tile<T, D>(x, b, h, qi * BQ, true, 0, 0.f, a.scale, simt_smem, pipe);
   }
 }
 
@@ -106,7 +110,7 @@ extern "C" int sgdrc_flash_tile_rows(int D, int wgmma) {
   using namespace sgdrc::flash;
   int rows = 0;
   with_head_dim(D, [&](auto dim) {
-    rows = launch<decltype(dim)::value>(wgmma != 0).rows;
+    rows = launch<float, decltype(dim)::value>(wgmma != 0).rows;
     return cudaSuccess;
   });
   return rows;
@@ -128,7 +132,7 @@ extern "C" int sgdrc_dual_tenant_attention(
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_head_dim(D, [&](auto dim) {
       constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<kD>(true);
+      constexpr Launch L = launch<__nv_bfloat16, kD>(true);
       // a tenant with no rows never runs a unit: it borrows the other's maps
       const bool has_ls = B_ls > 0, has_be = B_be > 0;
       const void* bases[6] = {has_ls ? q_ls : q_be, has_ls ? k_ls : k_be,
@@ -166,7 +170,7 @@ extern "C" int sgdrc_dual_tenant_attention(
     using T = typename decltype(tag)::type;
     return with_head_dim(D, [&](auto dim) {
       constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<kD>(false);
+      constexpr Launch L = launch<T, kD>(false);
       auto kernel = dual_kernel<T, kD>;
       cudaError_t err = allow_smem(kernel, L.smem);
       if (err != cudaSuccess) return err;

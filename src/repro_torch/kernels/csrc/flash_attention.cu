@@ -3,9 +3,12 @@
 //
 // Two routes, picked by the wrapper (flash_attention.py::route) before the
 // launch and passed as `wgmma`: bf16 runs flash_wgmma.cuh's tensor-core
-// body (TMA, wgmma, 128-row query tiles); f32 and f16 run flash_core.cuh's
-// CUDA-core body, which refuses bf16. Each header says what its tile computes, what bounds it
-// and why dual_tenant_attention.cu gives the same bits.
+// body (TMA, wgmma, 128-row query tiles); f32 and f16 run flash_simt.cuh's
+// CUDA-core body (64-row query tiles, register-tiled f32 FMAs fed by bulk
+// copies), which refuses bf16. Each header says what its tile computes,
+// what bounds it and why dual_tenant_attention.cu gives the same bits. Both
+// copy q, k and v 16 bytes at a time, so the tensors start on 16-byte
+// boundaries (the wrapper's aligned16).
 //
 // Grid: (H * B, ceil(S / BQ)), one query tile per block; the TPU kernel's
 // sequential kv grid axis is the key loop inside the tile. Blocks start in
@@ -18,12 +21,14 @@ namespace sgdrc {
 namespace flash {
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(Heads a, int causal, int window, float scale, float softcap) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) uint8_t simt_smem[];
+  init<T, D>(simt_smem);
+  Pipe pipe;
   const int qi = gridDim.y - 1 - blockIdx.y;
-  tile<T, D>(a, blockIdx.x / a.H, blockIdx.x % a.H, qi * Tile<D>::BQ,
-             causal != 0, window, softcap, scale, smem);
+  tile<T, D>(a, blockIdx.x / a.H, blockIdx.x % a.H, qi * BQ, causal != 0,
+             window, softcap, scale, simt_smem, pipe);
 }
 
 template <int D>
@@ -60,7 +65,7 @@ extern "C" int sgdrc_flash_attention(const void* q, const void* k,
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_head_dim(D, [&](auto dim) {
       constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<kD>(true);
+      constexpr Launch L = launch<__nv_bfloat16, kD>(true);
       CUtensorMap maps[3];
       const void* bases[3] = {q, k, v};
       const int heads[3] = {H, Hkv, Hkv};
@@ -85,7 +90,7 @@ extern "C" int sgdrc_flash_attention(const void* q, const void* k,
     using T = typename decltype(tag)::type;
     return with_head_dim(D, [&](auto dim) {
       constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<kD>(false);
+      constexpr Launch L = launch<T, kD>(false);
       cudaError_t err = allow_smem(flash_kernel<T, kD>, L.smem);
       if (err != cudaSuccess) return err;
       const dim3 grid(H * B, (S + L.rows - 1) / L.rows);

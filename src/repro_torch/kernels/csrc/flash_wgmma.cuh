@@ -1,8 +1,8 @@
 // The bf16 tile body of GQA self-attention on Hopper tensor cores, shared by
 // flash_attention.cu and dual_tenant_attention.cu (the "wgmma" route; f32
-// and f16 take flash_core.cuh's CUDA-core body, the "simt" route).
+// and f16 take flash_simt.cuh's CUDA-core body, the "simt" route).
 //
-// What it computes is flash_core.cuh's tile, for a query tile of BQ = 128
+// What it computes is flash_simt.cuh's tile, for a query tile of BQ = 128
 // rows: GQA, causal or not, local window, logit softcap, the scale D^-0.5
 // on the f32 scores, the finite NEG_INF = -1e30, acc / max(l, 1e-30), the
 // same key-tile range (first row's window start to last row's diagonal).
@@ -38,7 +38,7 @@
 
 #include <stdint.h>
 
-#include "flash_core.cuh"
+#include "flash_simt.cuh"
 #include "hopper.cuh"
 
 namespace sgdrc {
@@ -305,18 +305,18 @@ inline cudaError_t make_heads_map(CUtensorMap* map, const void* base, int B,
 
 }  // namespace wg
 
-// Launch parameters of a route's tile body for head dim D, which both
-// flash_attention.cu and dual_tenant_attention.cu read: threads a block,
-// query rows a tile, dynamic shared memory bytes.
+// Launch parameters of a route's tile body for element type T and head dim
+// D, which both flash_attention.cu and dual_tenant_attention.cu read:
+// threads a block, query rows a tile (the same for every T of a route),
+// dynamic shared memory bytes.
 struct Launch {
   int threads, rows, smem;
 };
 
-template <int D>
+template <typename T, int D>
 constexpr Launch launch(bool wgmma) {
   return wgmma ? Launch{wg::kThreads, wg::BQ, wg::Tile<D>::SMEM}
-               : Launch{kThreads, Tile<D>::BQ,
-                        static_cast<int>(smem_floats<D>() * sizeof(float))};
+               : Launch{kThreads, BQ, Geo<T, D>::SMEM};
 }
 }  // namespace flash
 }  // namespace sgdrc

@@ -158,7 +158,8 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
 }
 
 // Orders this thread's earlier shared-memory writes (cp.async, st.shared:
-// the generic proxy) before later reads by the async proxy (wgmma).
+// the generic proxy) before later accesses by the async proxy (wgmma reads,
+// bulk-copy writes).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

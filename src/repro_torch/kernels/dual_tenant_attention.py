@@ -13,7 +13,8 @@ Work units are (tenant, b, h, query tile) in the order of
 ``round_tiles`` as in the reference), over the kernel's own query tile,
 which is also ``flash_attention``'s on the same route
 (:func:`repro_torch.kernels.flash_attention.route`: bf16 runs the
-tensor-core body with 128-row tiles, f32 and f16 the CUDA-core body), so
+tensor-core body with 128-row tiles, f32 and f16 the CUDA-core body with
+64-row tiles, a (b, h)'s last tile first), so
 ``block_q`` and ``block_k`` are kept for the signature only. The wrapper
 uploads the order as int32 (owner, row) pairs, cached per shape and quota;
 a persistent grid takes units from an atomic ticket in that order. Every unit runs the very tile code of
@@ -70,9 +71,8 @@ def dual_tenant_attention(q_ls, k_ls, v_ls, q_be, k_be, v_be, *, sm_be=0.3,
                          f"{tuple(q_ls.shape)} {tuple(k_ls.shape)} vs "
                          f"{tuple(q_be.shape)} {tuple(k_be.shape)}")
     way = route(q_ls.dtype)
-    if way == "wgmma":
-        q_ls, k_ls, v_ls, q_be, k_be, v_be = (
-            aligned16(t) for t in (q_ls, k_ls, v_ls, q_be, k_be, v_be))
+    q_ls, k_ls, v_ls, q_be, k_be, v_be = (
+        aligned16(t) for t in (q_ls, k_ls, v_ls, q_be, k_be, v_be))
     nq = -(-S // tile_rows(D, way))
     order = schedule_order(B_ls * H * nq, B_be * H * nq, float(sm_be),
                            int(round_tiles), dev)

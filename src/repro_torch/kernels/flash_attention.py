@@ -14,11 +14,13 @@ and visit only the key tiles between the tile's first window start and its
 causal diagonal. :func:`route` picks the body before the launch:
 ``"wgmma"`` for bf16 (``csrc/flash_wgmma.cuh``: TMA loads, both products on
 the tensor cores with f32 accumulation), ``"simt"`` for f32 and f16
-(``csrc/flash_core.cuh``: f32 FMAs on CUDA cores; TF32 would break the f32
-tolerance). A launch that fails raises; nothing retries on the other route.
-The tiles are the kernel's own, by route and head dim (64, 128 or 256), so
-``block_q`` and ``block_k`` are kept for the reference's signature only,
-and S need not divide by them.
+(``csrc/flash_simt.cuh``: register-tiled f32 FMAs on CUDA cores fed by bulk
+copies; TF32 would break the f32 tolerance). A launch that fails raises;
+nothing retries on the other route. Both bodies copy 16 bytes at a time, so
+q, k and v that do not start on a 16-byte boundary are copied first
+(``aligned16``). The tiles are the kernel's own, by route and head dim (64,
+128 or 256), so ``block_q`` and ``block_k`` are kept for the reference's
+signature only, and S need not divide by them.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to
 :func:`repro_torch.kernels.ref.ref_attention`. The wrapper counts its
@@ -68,8 +70,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     check_heads("flash_attention", q, k, v)
     B, S, H, D = q.shape
     way = route(q.dtype)
-    if way == "wgmma":
-        q, k, v = aligned16(q), aligned16(k), aligned16(v)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     err = entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -429,10 +429,18 @@ def _cuda_qkv(cuda, seed, B, S, H, Hkv, D, dtype):
             for h in (H, Hkv, Hkv)]
 
 
+# attention on the card, elementwise (rtol = atol): f32 the reference's;
+# bf16 as chip_smoke.py holds it; f16: inputs rounded the same on both sides,
+# so kernel and plain version differ by f32 summation order and one output
+# rounding (2^-11 of the value) each, as chip_smoke.py's F16_TOL
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 2e-3}
 # Beside the elementwise tolerance, which at long S is about the size of a
 # late row's output: each (batch row, head)'s relative L2 error over the
-# rows [S/2, S), as chip_smoke.py's phase 7 holds it.
-LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# rows [S/2, S), as chip_smoke.py's phase 7 holds it (f16: a few output
+# roundings of 2^-11, against a dropped or repeated key tile's ~0.1)
+LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-3}
+# a long ragged S: past a key-tile ring's depth, a multiple of no tile
+LONG_S = 999
 # dual-tenant matmul rtol (atol 1e-4): f32 the reference's; bf16 and f16
 # one output rounding apart (2^-7, 2^-10 relative), as chip_smoke.py holds it
 MATMUL_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7, "float16": 2 ** -10}
@@ -445,12 +453,47 @@ def _assert_late_rows(got, want, dtype):
     assert rel.max().item() <= LATE_REL_TOL[dtype], rel.max().item()
 
 
+def _check_flash(q, k, v, dtype, causal, window, softcap):
+    """One flash_attention launch on its route, within ATTN_TOL and
+    LATE_REL_TOL of the plain version."""
+    way = "wgmma" if dtype == "bfloat16" else "simt"
+    before = fa.flash_attention.routes[way]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    assert fa.flash_attention.routes[way] == before + 1
+    want = ref.ref_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _assert_late_rows(got, want, dtype)
+
+
+def _check_dual_is_flash(cuda, dtype, D, B_ls, B_be, S):
+    """Each tenant of dual_tenant_attention equals flash_attention bit for
+    bit for sm_be 0.1/0.5/0.9, on the route of its dtype."""
+    t1 = _cuda_qkv(cuda, 1, B_ls, S, 4, 2, D, dtype)
+    t2 = _cuda_qkv(cuda, 2, B_be, S, 4, 2, D, dtype)
+    w1 = ops.flash_attention(*t1, causal=True)
+    w2 = ops.flash_attention(*t2, causal=True)
+    way = "wgmma" if dtype == "bfloat16" else "simt"
+    routes = ops.route_counts()
+    for sm_be in (0.1, 0.5, 0.9):
+        o1, o2 = ops.dual_tenant_attention(*t1, *t2, sm_be=sm_be)
+        assert torch.equal(o1, w1) and torch.equal(o2, w2), sm_be
+    assert ops.route_counts()["dual_tenant_attention"][way] == \
+        routes["dual_tenant_attention"][way] + 3
+    want = ref.ref_attention(*t2, causal=True)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(w2.float(), want.float(), rtol=tol, atol=tol)
+    _assert_late_rows(w2, want, dtype)
+
+
 @pytest.mark.cuda
 class TestCudaKernels:
     """Each kernel on the card vs ``kernels.ref`` on the same tensors
     (``pytest -m cuda tests/test_torch_sgdrc_kernels.py``)."""
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     @pytest.mark.parametrize("D", [64, 128, 256])
     @pytest.mark.parametrize("causal,window,softcap", [
         (True, None, None), (False, None, None), (True, 40, 30.0),
@@ -458,38 +501,28 @@ class TestCudaKernels:
     def test_flash(self, cuda, dtype, D, causal, window, softcap):
         # S = 200 is a multiple of no tile: the ragged edge is masked
         q, k, v = _cuda_qkv(cuda, D, 2, 200, 4, 2, D, dtype)
-        way = "wgmma" if dtype == "bfloat16" else "simt"
-        before = fa.flash_attention.routes[way]
-        got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  softcap=softcap)
-        assert fa.flash_attention.routes[way] == before + 1
-        want = ref.ref_attention(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
-        tol = {"float32": 2e-5, "bfloat16": 3e-2}[dtype]
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
-        _assert_late_rows(got, want, dtype)
+        _check_flash(q, k, v, dtype, causal, window, softcap)
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("D", [128, 256])
+    @pytest.mark.parametrize("causal,window,softcap", [
+        (True, None, None), (True, 300, 50.0), (False, None, None)])
+    def test_flash_long(self, cuda, D, causal, window, softcap):
+        """f32 at LONG_S: many key tiles through the load buffers, the
+        last one ragged; the window and softcap path at both head dims."""
+        q, k, v = _cuda_qkv(cuda, D + 1, 2, LONG_S, 4, 2, D, "float32")
+        _check_flash(q, k, v, "float32", causal, window, softcap)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     @pytest.mark.parametrize("D", [64, 128, 256])
     def test_dual_attention_is_flash(self, cuda, dtype, D):
         """Bit-identical to the flash kernel per tenant, for any sm_be."""
-        t1 = _cuda_qkv(cuda, 1, 1, 192, 4, 2, D, dtype)
-        t2 = _cuda_qkv(cuda, 2, 3, 192, 4, 2, D, dtype)
-        w1 = ops.flash_attention(*t1, causal=True)
-        w2 = ops.flash_attention(*t2, causal=True)
-        way = "wgmma" if dtype == "bfloat16" else "simt"
-        routes = ops.route_counts()
-        for sm_be in (0.1, 0.5, 0.9):
-            o1, o2 = ops.dual_tenant_attention(*t1, *t2, sm_be=sm_be)
-            assert torch.equal(o1, w1) and torch.equal(o2, w2), sm_be
-        assert ops.route_counts()["dual_tenant_attention"][way] == \
-            routes["dual_tenant_attention"][way] + 3
-        tol = {"float32": 2e-5, "bfloat16": 3e-2}[dtype]
-        want = ref.ref_attention(*t2, causal=True)
-        torch.testing.assert_close(w2.float(), want.float(), rtol=tol,
-                                   atol=tol)
-        _assert_late_rows(w2, want, dtype)
+        _check_dual_is_flash(cuda, dtype, D, 1, 3, 192)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("D", [128, 256])
+    def test_dual_attention_is_flash_long(self, cuda, dtype, D):
+        """The same at LONG_S, with a BE batch of another size."""
+        _check_dual_is_flash(cuda, dtype, D, 2, 3, LONG_S)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     @pytest.mark.parametrize("m_ls,m_be,K,N", [(128, 256, 128, 128),
