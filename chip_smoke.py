@@ -69,7 +69,12 @@ non-zero:
              widths (B 4, T 2048, H 64, K 64, P 64, chunk 64) with mamba2's
              decays (bf16 and f32), the reference tests' decay range and
              zero decay (f32), against the exact recurrence
-             ``ref_ssd_scan`` and the model path's ``chunked_linear_attn``;
+             ``ref_ssd_scan`` and the model path's ``chunked_linear_attn``
+             within SSD_TOL; chunk 16 bit-equal to chunk 64 (mamba2 bf16,
+             f32); a planted fault (the second half of the reference-range
+             and zero-decay inputs run alone, its carried state lost) that
+             must read above SSD_TOL; the four rows nested in the JSON
+             line (``float32``, ``ref_range_float32``, ``zero_float32``);
              (b) zamba2-1.2b at its published width in f32: ``forward``
              (chunk 64) against token-by-token ``prefill`` of 2 x 128
              tokens; (c) the dense engine with use_flash: LS zamba2-1.2b +
@@ -455,10 +460,12 @@ def kernel_phase(torch, seed):
                 require(planted > lim, f"Sq=1 {what} {tag}: the check misses "
                                        f"a planted fault ({planted})")
 
-            def f16_row(name, fn, tensors, call, plain):
+            def f16_row(name, fn, tensors, call, plain, sdpa):
                 """``call`` and ``plain`` on the f32 call's q, k, v
                 (``tensors``) rounded to f16, on the CUDA-core body: within
-                F16_TOL of the plain version, and timed."""
+                F16_TOL of the plain version, and timed beside SDPA on the
+                f32 library call's q, k, v (``sdpa``, with its mask)
+                rounded to f16."""
                 qkv = [x.half() for x in tensors]
                 out = routed(fn, lambda: call(*qkv))
                 want = plain(*qkv)
@@ -467,9 +474,16 @@ def kernel_phase(torch, seed):
                                        rtol=F16_TOL, atol=F16_TOL),
                         f"{name} {model} float16: max abs {err}")
                 ms = graph_ms(lambda: call(*qkv))
+                lq, lk, lv = (x.half() for x in sdpa[:3])
+                lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                    lq, lk, lv, attn_mask=sdpa[3]))
+                del lq, lk, lv
                 log(f"  {name:24s} {model + ' float16':26s} max_abs_err="
-                    f"{err:.3e} device_ms={ms:.4f}")
-                results[name]["float16"] = {"max_abs_err": err, "ms": ms}
+                    f"{err:.3e} device_ms={ms:.4f} library_ms={lib_ms:.4f} "
+                    f"vs_library={ms / lib_ms:.3f}")
+                results[name]["float16"] = {
+                    "max_abs_err": err, "ms": ms, "library_ms": lib_ms,
+                    "vs_library": ms / lib_ms}
 
             def routed(fn, call):
                 """``call()``, required to launch ``fn`` once on the route
@@ -575,7 +589,7 @@ def kernel_phase(torch, seed):
                 f16_row("prefill_attention_paged", fn, (q, kpool, vpool),
                         lambda *qkv: fn(*qkv, pt, posp),
                         lambda *qkv: ref.ref_prefill_attention_paged(
-                            *qkv, pt, posp))
+                            *qkv, pt, posp), (qt, kr, vr, mask))
 
             # -- 3: dense decode (bhsd, the serving layout; bshd too) --
             Bd, Smax = 4, 2048
@@ -688,7 +702,8 @@ def kernel_phase(torch, seed):
                 f16_row("prefill_attention", fn, (q, kc, vc),
                         lambda *qkv: fn(*qkv, posp),
                         lambda q, k, v: ref.ref_prefill_attention(
-                            q, k.transpose(1, 2), v.transpose(1, 2), posp))
+                            q, k.transpose(1, 2), v.transpose(1, 2), posp),
+                        (qt, kr, vr, mask))
             del kpool, vpool, kc, vc, kr, vr
             torch.cuda.empty_cache()
     return results
@@ -1363,24 +1378,29 @@ def sgdrc_phase(torch, seed):
 # phase 8: the SSM and hybrid families
 # ---------------------------------------------------------------------------
 
-def _ssd_close(torch, got, want, dname, what):
-    """Max abs error of ``got`` against ``want`` under ``SSD_TOL``."""
+def _ssd_excess(torch, got, want, dname):
+    """The largest |got - want| over its limit under ``SSD_TOL``: at most 1
+    within it."""
     rtol, atol = SSD_TOL[dname]
     g, w = got.float(), want.float()
-    d = (g - w).abs()
     scale = max(1.0, w.abs().max().item())
-    err = d.max().item()
-    require(bool(torch.isfinite(g).all())
-            and bool((d <= rtol * w.abs() + atol * scale).all()),
-            f"{what}: not within rtol {rtol} + atol {atol} x {scale:.1f} "
-            f"(max abs {err})")
+    return ((g - w).abs() / (rtol * w.abs() + atol * scale)).max().item()
+
+
+def _ssd_close(torch, got, want, dname, what):
+    """Max abs error of ``got`` against ``want`` under ``SSD_TOL``."""
+    err = (got.float() - want.float()).abs().max().item()
+    excess = _ssd_excess(torch, got, want, dname)
+    require(bool(torch.isfinite(got.float()).all()) and excess <= 1.0,
+            f"{what}: not within {SSD_TOL[dname]} (max abs {err}, "
+            f"{excess:.3g} x the limit)")
     return err
 
 
 def ssd_phase(torch, seed):
     """(a) ``ssd_scan`` at zamba2-1.2b's mamba2 widths."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.models import ssm
     F = torch.nn.functional
     s = get_config("zamba2-1.2b").ssm
@@ -1402,12 +1422,16 @@ def ssd_phase(torch, seed):
         "ref-range": -0.2 * randn(B, T, H, K).abs(),
         "zero": torch.zeros(B, T, H, K, device=dev),
     }
+    # (decay, dtype, the row's key in the JSON line: None for the kernel's
+    # own row, the first)
     cases = []
-    for decay, dname in (("mamba2", "bfloat16"), ("mamba2", "float32"),
-                         ("ref-range", "float32"), ("zero", "float32")):
+    for decay, dname, key in (("mamba2", "bfloat16", None),
+                              ("mamba2", "float32", "float32"),
+                              ("ref-range", "float32", "ref_range_float32"),
+                              ("zero", "float32", "zero_float32")):
         dtype = getattr(torch, dname)
         # log_w stays f32, as mamba2 hands it over beside bf16 q, k, v
-        cases.append((f"{decay} {dname}", dname,
+        cases.append((f"{decay} {dname}", dname, key,
                       (q.to(dtype), k.to(dtype), v.to(dtype),
                        decays[decay])))
     sums = [float(w[0, :L, 0, 0].sum()) for w in decays.values()]
@@ -1416,25 +1440,50 @@ def ssd_phase(torch, seed):
         f"range {sums[1]:.1f}, zero {sums[2]:.1f}")
     torch.cuda.synchronize()
 
+    blocks = _build.entry("ssd_scan", "sgdrc_ssd_scan_blocks_per_sm")
+    log(f"  blocks an SM: bf16 {blocks(1, 0, K)}, f32 {blocks(0, 0, K)}")
     ops.reset_launch_counts()
-    outs = [ops.ssd_scan(*args, chunk=L) for _, _, args in cases]
+    outs = [ops.ssd_scan(*args, chunk=L) for _, _, _, args in cases]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"  launches {counts}")
     require(counts["ssd_scan"] == len(cases), f"ssd_scan launches {counts}")
 
-    result = None
-    for (tag, dname, args), out in zip(cases, outs):
+    result = {}
+    for (tag, dname, key, args), out in zip(cases, outs):
         require(tuple(out.shape) == (B, T, H, P)
                 and out.dtype == args[0].dtype, f"ssd_scan {tag}: "
                 f"{out.dtype} {tuple(out.shape)}")
-        err = _ssd_close(torch, out, ref.ref_ssd_scan(*args), dname,
+        want = ref.ref_ssd_scan(*args)
+        err = _ssd_close(torch, out, want, dname,
                          f"ssd_scan {tag} vs ref_ssd_scan")
         model = ssm.chunked_linear_attn(*args, chunk=L)[0]
         err_m = _ssd_close(torch, out, model, dname,
                            f"ssd_scan {tag} vs chunked_linear_attn")
         del model
-        ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=10)
+        if key is None or key == "float32":
+            # the kernel tiles T its own way: the chunk changes no bit
+            out16 = ops.ssd_scan(*args, chunk=16)
+            require(torch.equal(out16, out), f"ssd_scan {tag}: chunk 16 "
+                    f"and chunk {L} differ")
+            del out16
+            log(f"  ssd_scan {tag}: chunk 16 and chunk {L} equal bit for "
+                f"bit")
+        else:
+            # planted fault: the second half run alone loses the state the
+            # first half carries into it; the check must see that
+            half = T // 2
+            lost = ops.ssd_scan(*(a[:, half:] for a in args), chunk=L)
+            sound = _ssd_excess(torch, out[:, half:], want[:, half:], dname)
+            planted = _ssd_excess(torch, lost, want[:, half:], dname)
+            log(f"  ssd_scan {tag}: second half vs ref_ssd_scan "
+                f"{sound:.3g} x the limit; run alone (state lost) "
+                f"{planted:.3g} x")
+            require(planted > 1.0, f"ssd_scan {tag}: the check misses a "
+                                   f"lost state ({planted:.3g} x the limit)")
+            del lost
+        del want
+        ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=20)
         plain = cuda_ms(lambda: ref.ref_ssd_scan(*args), iters=2, warmup=1)
         model_ms = cuda_ms(lambda: ssm.chunked_linear_attn(*args, chunk=L),
                            iters=3, warmup=1)
@@ -1445,11 +1494,15 @@ def ssd_phase(torch, seed):
         log(f"  ssd_scan {tag:20s} max_abs_err={err:.3e} (vs "
             f"chunked_linear_attn {err_m:.3e}) ms={ms:.4f} "
             f"plain_ms={plain:.4f} model_path_ms={model_ms:.4f} "
-            f"library_ms=null bound_ms={bound[0]:.4f} ({bound[1]})")
-        if result is None:
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          library_ms=None, bound_ms=bound[0],
-                          bound_by=bound[1])
+            f"library_ms=null bound_ms={bound[0]:.4f} ({bound[1]}) "
+            f"of_bound={bound[0] / ms:.3f}")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                   bound_ms=bound[0], bound_by=bound[1],
+                   of_bound=bound[0] / ms, model_path_ms=model_ms)
+        if key is None:
+            result.update(row)
+        else:
+            result[key] = row
     del outs, cases, q, k, v, decays
     torch.cuda.empty_cache()
     return counts, result

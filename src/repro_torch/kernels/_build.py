@@ -63,7 +63,8 @@ ENTRIES = {
         "sgdrc_matmul_tile": ([], _I)},
     "spt_gather": {"sgdrc_spt_gather": (SPT_ARGTYPES, _I),
                    "sgdrc_spt_scatter": (SPT_ARGTYPES, _I)},
-    "ssd_scan": {"sgdrc_ssd_scan": (SSD_ARGTYPES, _I)},
+    "ssd_scan": {"sgdrc_ssd_scan": (SSD_ARGTYPES, _I),
+                 "sgdrc_ssd_scan_blocks_per_sm": ([_I, _I, _I], _I)},
 }
 SOURCES = tuple(ENTRIES)
 

@@ -1,19 +1,22 @@
-"""Chunked linear-recurrence scan (SSD / Mamba2) on Hopper: ``S_t =
+"""Linear-recurrence scan (SSD / Mamba2) on Hopper: ``S_t =
 diag(exp w_t) S_{t-1} + k_t v_t^T``, ``y_t = q_t . S_t`` (inclusive), with
-an f32 ``[K, P]`` state carried across chunks.
+an f32 ``[K, P]`` state.
 
 CUDA wrapper for ``csrc/ssd_scan.cu``, which replaces the Pallas kernel
 ``src/repro/kernels/ssd_scan.py::ssd_scan`` with the same arguments and
-result. Inside a chunk the kernel applies the exact decay exp(s_j - s_i)
-(every exponent <= 0, no clamp), so it equals the recurrence of the oracle
+result. The kernel applies the exact decay exp(s_j - s_i) (every exponent
+<= 0, no clamp), so it equals the recurrence of the oracle
 ``ref.ref_ssd_scan`` everywhere, and the Pallas kernel wherever no chunk's
-cumulative log-decay passes the latter's clamp of -20.
+cumulative log-decay passes the latter's clamp of -20. For the same reason
+``chunk`` only has to divide ``T`` (the reference's contract, kept by
+:func:`chunk_len`): the kernel walks ``T`` in sub-chunks of 16 tokens
+whatever the chunk, so every chunk gives the same bits, and a ragged last
+sub-chunk is masked.
 
 What bounds it on the card, and its design: see the source's head. Inputs
 are read through their strides (any ``[B,T,H,*]`` view whose last axis is
 contiguous, broadcast axes included); ``log_w`` may be f32 beside bf16 or
-f16 ``q``, ``k``, ``v`` (as mamba2 computes it). ``T`` must be a multiple
-of ``min(chunk, T)``, which may be at most 64; ``K`` at most 128.
+f16 ``q``, ``k``, ``v`` (as mamba2 computes it). ``K`` is at most 128.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain version. Counts its launches in ``ssd_scan.launches``.
@@ -26,7 +29,7 @@ import torch
 
 from ._build import DTYPE_CODES, check_launch, entry, stream_of
 
-MAX_CHUNK, MAX_K = 64, 128
+MAX_K = 128
 
 
 def chunk_len(T: int, chunk: int) -> int:
@@ -61,9 +64,8 @@ def ssd_scan(q, k, v, log_w, *, chunk=64):
     for what, t in (("q", q), ("k", k), ("v", v), ("log_w", log_w)):
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"ssd_scan: {what} needs a contiguous last axis")
-    if L > MAX_CHUNK or K > MAX_K:
-        raise ValueError(f"ssd_scan: chunk {L} > {MAX_CHUNK} or K {K} > "
-                         f"{MAX_K}")
+    if K > MAX_K:
+        raise ValueError(f"ssd_scan: K {K} > {MAX_K}")
     y = torch.empty(B, T, H, P, dtype=q.dtype, device=dev)
     strides = (ctypes.c_int64 * 15)(*(s for t in (q, k, v, log_w, y)
                                       for s in t.stride()[:3]))

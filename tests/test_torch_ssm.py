@@ -18,8 +18,9 @@ the port computes the exact recurrence. Where the clamp is inactive the two
 agree; ``test_exact_where_reference_clamp_bites`` shows where they do not.
 
 CUDA (marked ``cuda``, skipped without a card): the ``ssd_scan`` kernel
-against its plain version. JAX is imported lazily, so that the file also
-runs on a machine without it.
+against its plain version (f32, bf16, f16; ragged T, chunks above 64,
+strong and mixed decays) and its output bit-equal across ``chunk``. JAX
+is imported lazily, so that the file also runs on a machine without it.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -467,37 +468,90 @@ def cuda():
     return torch.device("cuda")
 
 
+# (rtol, atol x max(1, max |want|)) of the kernel against ref_ssd_scan: f32
+# sums in other orders; a 16-bit output adds one rounding (2^-8 of the value
+# in bf16, 2^-11 in f16) on each side
+KERNEL_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2 ** -7, 2e-4),
+              "float16": (2 ** -10, 2e-4)}
+
+
+def _kernel_inputs(dev, B, T, H, K, P, dtype, seed):
+    """q, k as stride-0 broadcasts over the heads and f32 log_w beside
+    16-bit q, k, v, as mamba2 passes them; log_w still to be set."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, T, 1, K, generator=g, device=dev).to(dt) \
+        .expand(B, T, H, K)
+    k = torch.randn(B, T, 1, K, generator=g, device=dev).to(dt) \
+        .expand(B, T, H, K)
+    v = torch.randn(B, T, H, P, generator=g, device=dev).to(dt)
+    return q, k, v, g
+
+
+def _kernel_close(got, want, dtype):
+    rtol, atol = KERNEL_TOL[dtype]
+    scale = max(1.0, want.float().abs().max().item())
+    d = (got.float() - want.float()).abs()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((d <= rtol * want.float().abs() + atol * scale).all()), \
+        d.max().item()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("B,T,H,K,P,chunk,decay", [
     (1, 128, 2, 16, 32, 32, 0.2), (2, 64, 4, 8, 8, 16, 0.2),
     (1, 256, 1, 64, 64, 64, 0.7), (1, 96, 3, 5, 70, 24, 0.5),
-    (2, 40, 2, 32, 32, 40, 0.0),
+    (2, 40, 2, 32, 32, 40, 0.0), (1, 56, 2, 16, 16, 8, 0.5),
+    (1, 256, 2, 64, 64, 128, 0.2), (1, 64, 2, 100, 48, 64, 0.3),
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, B, T, H, K, P, chunk, decay,
                                        dtype):
     """The kernel against ``ref_ssd_scan`` on the card, at the reference
     tests' shapes, a decay where the Pallas clamp would bite, ragged
-    widths (K 5, P 70 over two column tiles, chunk 24) and zero decay;
-    f32 log_w beside bf16 q, k, v, as mamba2 passes it; q and k as
-    stride-0 broadcasts over the heads, as mamba2 passes them."""
-    g = torch.Generator(device=cuda).manual_seed(T + P)
-    dt = getattr(torch, dtype)
-    q = torch.randn(B, T, 1, K, generator=g, device=cuda).to(dt) \
-        .expand(B, T, H, K)
-    k = torch.randn(B, T, 1, K, generator=g, device=cuda).to(dt) \
-        .expand(B, T, H, K)
-    v = torch.randn(B, T, H, P, generator=g, device=cuda).to(dt)
+    widths (K 5, P 70 over two column tiles, chunk 24), zero decay, T not
+    a multiple of the kernel's 16-token sub-chunk (T 40, T 56 at chunk
+    8), a chunk above 64 and K above 64; f32 log_w beside 16-bit q, k, v,
+    as mamba2 passes it; q and k as stride-0 broadcasts over the heads, as
+    mamba2 passes them."""
+    q, k, v, g = _kernel_inputs(cuda, B, T, H, K, P, dtype, T + P)
     log_w = -decay * torch.randn(B, T, H, K, generator=g,
                                  device=cuda).abs()
     ops.reset_launch_counts()
     got = ops.ssd_scan(q, k, v, log_w, chunk=chunk)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_scan"] == 1
-    want = ref.ref_ssd_scan(q, k, v, log_w)
-    rtol = 2e-4 if dtype == "float32" else 2 ** -7
-    scale = max(1.0, want.float().abs().max().item())
-    d = (got.float() - want.float()).abs()
-    assert got.dtype == dt and got.shape == want.shape
-    assert bool((d <= rtol * want.float().abs() + 2e-4 * scale).all()), \
-        d.max().item()
+    _kernel_close(got, ref.ref_ssd_scan(q, k, v, log_w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_ssd_scan_kernel_strong_decay(cuda, mixed, dtype):
+    """A log-decay of -3 a token (-48 over a 16-token sub-chunk, -192 over
+    a chunk of 64), where a product of decay factors underflows; mixed:
+    half the channels at -3, the other half at 0, so undecayed sums of
+    the whole sequence sit beside terms that vanish."""
+    B, T, H, K, P = 2, 192, 2, 64, 64
+    q, k, v, _ = _kernel_inputs(cuda, B, T, H, K, P, dtype, 7)
+    log_w = torch.full((B, T, H, K), -3.0, device=cuda)
+    if mixed:
+        log_w[..., ::2] = 0.0
+    got = ops.ssd_scan(q, k, v, log_w, chunk=64)
+    torch.cuda.synchronize()
+    _kernel_close(got, ref.ref_ssd_scan(q, k, v, log_w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_bits_equal_across_chunk(cuda, dtype):
+    """The kernel computes the exact recurrence on its own 16-token tiling,
+    so the caller's chunk changes no bit of the output."""
+    B, T, H, K, P = 1, 128, 4, 64, 64
+    q, k, v, g = _kernel_inputs(cuda, B, T, H, K, P, dtype, 11)
+    log_w = -0.5 * torch.randn(B, T, H, K, generator=g, device=cuda).abs()
+    outs = [ops.ssd_scan(q, k, v, log_w, chunk=c) for c in (8, 16, 64)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
