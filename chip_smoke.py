@@ -82,13 +82,33 @@ non-zero:
              of 64-256 tokens per class in two length groups, 16 new
              tokens; every zamba2 decode step launches decode_attention
              once per shared-block invocation (6).
+9. tidal   — SGDRC's control plane on phase 5's engine and prompts, with
+             one set of weights from the seed: KV page pools colored from a
+             3 GiB ColoredArena over the tesla-p40 channel hash (12
+             channels: the reference's placement bookkeeping over a hash
+             model the repo has, not the H100's channels), LS 2 GiB / BE
+             1 GiB at ch_be 1/3. Three runs: (a) static, the plan's split;
+             (b) tidal, an OnlineController over tidal_frontier (idle
+             patience 1, control every 2 quanta) with a ChunkGovernor whose
+             target TBT is half phase 5's LS TBT p99; once the lending plan
+             is in force two more LS prompts arrive and the next step must
+             snap back; (c) static with a mid-run resplit to ch_be 1/2 at
+             step 3. Required: every request completes, (b) lends, snaps
+             back and adapts the chunk, no LS page group off its colors in
+             (b) and none at all after (c)'s resplit, BE peak_active (b) >
+             (a), (c)'s tokens equal (a)'s bit for bit, every prefill on
+             "wgmma". Printed: transitions, each run's quanta, wall, LS
+             TTFT/TBT and BE tokens/s (a smoke), and the host ms of the
+             control tick and plan adoption. The resplit makes no device
+             copy (placement bookkeeping, as in the reference).
 
-Launch counts of phases 5, 6, 6b, 7, 8a and 8c are read with the counters
-set to 0 just before each phase drives its path (phases 7 and 8a count
-their drive, before their checks and timings). The next-to-last line is one
-JSON object with every kernel's launches and times (phase 3's f32 rows of
-the four engine kernels under "float32", with phase 6b's launches); the
-last line is the device JSON.
+Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9 are read with the
+counters set to 0 just before each phase drives its path (phases 7 and 8a
+count their drive, before their checks and timings). The next-to-last line
+is one JSON object with every kernel's launches and times (phase 3's f32
+rows of the four engine kernels under "float32", with phase 6b's launches;
+phase 9's runs under "tidal_launches" of the two paged rows); the last line
+is the device JSON.
 """
 from __future__ import annotations
 
@@ -146,6 +166,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # layers and the final norm; 5e-2 relative L2 bounds that drift while still
 # failing on a wrong kernel (which gives O(1) relative error).
 MODEL_REL_TOL = 5e-2
+# phase 9: the colored arena's bytes (LS 2 GiB, BE 1 GiB at ch_be 1/3)
+TIDAL_ARENA_BYTES = 3 << 30
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1642,13 +1664,237 @@ def ssm_engine_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the tidal control plane on the engine
+# ---------------------------------------------------------------------------
+
+def _tidal_engine(params, *, controller=None, governor=None, plan=None):
+    """Phase 5's paged LS qwen3-1.7b + BE stablelm-1.6b engine with colored
+    KV pools over the tesla-p40 hash (12 channels). The colors are the
+    reference's placement bookkeeping over a hash model the repo has, not
+    the H100's memory channels: the repo has no H100 channel hash."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.coloring import gpu_hash_model
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(max_seq=2048, paged=True, page_size=PAGE,
+                        use_flash=True, chunk_size=256, slots_ls=8,
+                        slots_be=8, plan=plan, coloring=True,
+                        hash_model=gpu_hash_model("tesla-p40"),
+                        arena_bytes=TIDAL_ARENA_BYTES, ch_be=1 / 3,
+                        controller=controller, chunk_governor=governor,
+                        control_interval=2, torch_device="cuda")
+    eng.add_tenant(TenantSpec("ls-qwen3", "LS"), get_config("qwen3-1.7b"),
+                   params=params["ls"])
+    eng.add_tenant(TenantSpec("be-stablelm", "BE"),
+                   get_config("stablelm-1.6b"), params=params["be"])
+    return eng
+
+
+def _timed_control(eng):
+    """Wrap the engine's control tick and plan adoption, and the arena's
+    operations, with host timers (a call made inside another counts in
+    both)."""
+    spent = {}
+    for obj, name in ((eng, "_maybe_control"), (eng, "apply_plan"),
+                      (eng.arena, "alloc"), (eng.arena, "release"),
+                      (eng.arena, "resplit"),
+                      (eng.arena, "isolation_violations")):
+        inner = getattr(obj, name)
+        spent[name] = []
+
+        def timed(*a, _inner=inner, _key=name, **kw):
+            t0 = time.perf_counter()
+            out = _inner(*a, **kw)
+            spent[_key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(obj, name, timed)
+    return spent
+
+
+def _host_line(spent):
+    return "; ".join(
+        f"{k} {len(v)} calls, {sum(v):.1f} ms ({sum(v) / max(len(v), 1):.2f}"
+        f" per call, max {max(v, default=0):.1f})" for k, v in spent.items())
+
+
+def _ls_violations(eng):
+    a = eng.arena
+    return {n: a.isolation_violations(al) for n, al in a.allocations.items()
+            if n.startswith("ls-") and a.isolation_violations(al)}
+
+
+def tidal_phase(torch, seed, ls_tbt_p99_ms):
+    """(a) static colored split, (b) the online controller with a chunk
+    governor, (c) the static split with one mid-run channel resplit, on
+    phase 5's prompts and the same weights. Returns each run's launches."""
+    from dataclasses import replace
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import (ChunkGovernor,
+                                             OnlineController, ResourcePlan,
+                                             tidal_frontier)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    C = 12
+    plan = ResourcePlan(sm_be=0.3, ch_be=1 / 3, thres_dram=0.4,
+                        ls_channels=tuple(range(8)),
+                        be_channels=tuple(range(8, 12)),
+                        max_ls_inflation=0.25)
+    t0 = time.perf_counter()
+    params = {"ls": tf.init_params(get_config("qwen3-1.7b"), seed, "cuda",
+                                   dtype=torch.bfloat16),
+              "be": tf.init_params(get_config("stablelm-1.6b"), seed + 1,
+                                   "cuda", dtype=torch.bfloat16)}
+    torch.cuda.synchronize()
+    log(f"  weights (phase 5's seeds) ready in {time.perf_counter() - t0:.1f}"
+        f"s; arena {TIDAL_ARENA_BYTES >> 30} GiB over the tesla-p40 hash "
+        f"({C} channels; bookkeeping, not the H100's channels)")
+    lens = np.random.default_rng(seed + 7)
+    ls_lens = [int(x) for x in lens.integers(128, 1025, 8)]
+    be_lens = [int(x) for x in lens.integers(512, 1537, 8)]
+    rng = np.random.default_rng(seed)     # phase 5's token draw
+    ls_p = [rng.integers(0, get_config("qwen3-1.7b").vocab_size, L)
+            for L in ls_lens]
+    be_p = [rng.integers(0, get_config("stablelm-1.6b").vocab_size, L)
+            for L in be_lens]
+    tide = [rng.integers(0, get_config("qwen3-1.7b").vocab_size, L)
+            for L in (300, 700)]
+    target = 0.5 * ls_tbt_p99_ms
+    log(f"  LS prompts {ls_lens}; BE prompts {be_lens}; tide LS (b) "
+        f"[300, 700]; max_new 32; chunk governor target TBT {target:.1f} ms"
+        f" (half phase 5's LS TBT p99)")
+    max_new = 32
+    runs = {}
+    for mode in ("static", "tidal", "resplit"):
+        governor = controller = None
+        if mode == "tidal":
+            controller = OnlineController(tidal_frontier(plan, C),
+                                          idle_patience=1)
+            governor = ChunkGovernor(target_tbt_ms=target, chunk=256,
+                                     min_chunk=32, max_chunk=256)
+        t0 = time.perf_counter()
+        eng = _tidal_engine(params, plan=plan, controller=controller,
+                            governor=governor)
+        spent = _timed_control(eng)
+        t_setup = time.perf_counter() - t0
+        reqs = [eng.submit("ls-qwen3", p, max_new=max_new) for p in ls_p]
+        reqs += [eng.submit("be-stablelm", p, max_new=max_new)
+                 for p in be_p]
+        ops.reset_launch_counts()
+        bad, checks, lent_step, snapped = {}, 0, None, None
+        t_check = 0.0
+        admit = {k: len(v) for k, v in spent.items()}
+        t0 = time.perf_counter()
+        steps = 0
+        while steps < 100_000:
+            n_tr, moved = len(eng.transitions), eng.migrated_bytes
+            progressed = eng.step()
+            steps += 1
+            if mode == "tidal" and lent_step is None and eng.sm_be >= 1.0:
+                lent_step = eng.transitions[-1]["step"]
+                reqs += [eng.submit("ls-qwen3", p, max_new=max_new)
+                         for p in tide]
+                eng.step()                 # the out-of-band tick
+                steps += 1
+                snapped = eng.sm_be
+            if mode == "resplit" and steps == 3:
+                eng.apply_plan(replace(plan, ch_be=0.5))
+            tc = time.perf_counter()
+            n_viol = len(spent["isolation_violations"])
+            if mode == "resplit" and steps >= 3 and (
+                    steps == 3 or steps % 10 == 0):
+                checks += 1
+                a = eng.arena
+                for n, al in a.allocations.items():
+                    if a.isolation_violations(al):
+                        bad[n] = a.isolation_violations(al)
+            elif (mode == "tidal" and (len(eng.transitions) != n_tr
+                                       or eng.migrated_bytes != moved)):
+                checks += 1
+                bad.update(_ls_violations(eng))
+            del spent["isolation_violations"][n_viol:]   # the checks' own
+            t_check += time.perf_counter() - tc
+            if not progressed and not any(rt.has_work()
+                                          for rt in eng.tenants.values()):
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - t_check
+        counts, routes = ops.launch_counts(), ops.route_counts()
+        for r in reqs:
+            require(not r.failed and r.output is not None
+                    and len(r.output) == max_new,
+                    f"({mode}) request {r.rid} ({r.tenant}, "
+                    f"{len(r.tokens)} tokens): "
+                    f"{None if r.output is None else len(r.output)} tokens")
+        require(counts["decode_attention_paged"] > 0
+                and counts["prefill_attention_paged"] > 0,
+                f"({mode}) paged kernels not launched: {counts}")
+        require(routes["prefill_attention_paged"] == {
+            "wgmma": counts["prefill_attention_paged"], "simt": 0},
+            f"({mode}) prefill routes {routes['prefill_attention_paged']}")
+        # the run's host work only (not set-up, not the checks, not the
+        # metrics() call below)
+        spent = {k: v[admit[k]:] for k, v in spent.items()}
+        m = eng.metrics()
+        cls = m["_class"]
+        be_toks = sum(len(r.output) for r in reqs if r.tenant != "ls-qwen3")
+        log(f"  ({mode}) smoke: {len(eng.events)} quanta in {wall:.2f}s "
+            f"(set-up {t_setup:.1f}s, checks {t_check * 1e3:.0f} ms "
+            f"excluded); LS TTFT p50/p99 {cls['LS']['ttft']['p50_ms']:.1f}/"
+            f"{cls['LS']['ttft']['p99_ms']:.1f} ms, TBT p50/p99 "
+            f"{cls['LS']['tbt']['p50_ms']:.1f}/"
+            f"{cls['LS']['tbt']['p99_ms']:.1f} ms; BE "
+            f"{be_toks / wall:.2f} tokens/s (run wall); BE "
+            f"peak_active {m['be-stablelm']['peak_active']}; launches "
+            f"{counts}")
+        log(f"  ({mode}) host: {_host_line(spent)}; migrated "
+            f"{eng.migrated_bytes} B")
+        for t in eng.transitions:
+            log(f"    transition step {t['step']}: sm_be {t['sm_be']:.2f} "
+                f"ch_be {t['ch_be']:.3f} pages {t['pages_moved']} bytes "
+                f"{t['bytes_moved']} cause {t['cause']}"
+                + (f" chunk {t['chunk_size']} budget {t['prefill_budget']}"
+                   if "chunk_size" in t else ""))
+        require(not bad, f"({mode}) isolation violations {bad} "
+                f"({checks} checks)")
+        runs[mode] = {"tokens": [list(r.output) for r in reqs[:16]],
+                      "events": list(eng.events), "counts": counts,
+                      "peak_be": m["be-stablelm"]["peak_active"],
+                      "causes": [t["cause"] for t in eng.transitions],
+                      "lent": lent_step, "snapped": snapped,
+                      "checks": checks}
+        del eng
+    tidal = runs["tidal"]
+    require(tidal["lent"] is not None, "the controller never lent")
+    require(tidal["snapped"] is not None and tidal["snapped"] < 1.0,
+            f"no snap-back one step after the LS tide ({tidal['snapped']})")
+    require({"lending", "snap_back", "chunk_adapt"} <= set(tidal["causes"]),
+            f"tidal causes {tidal['causes']}")
+    require(tidal["peak_be"] > runs["static"]["peak_be"],
+            f"BE peak_active tidal {tidal['peak_be']} <= static "
+            f"{runs['static']['peak_be']}")
+    require(runs["resplit"]["tokens"] == runs["static"]["tokens"],
+            "tokens changed across a mid-run resplit")
+    log(f"  tidal: lent at step {tidal['lent']}, sm_be {tidal['snapped']} "
+        f"one step after the tide; BE peak_active tidal {tidal['peak_be']}"
+        f" vs static {runs['static']['peak_be']}; resplit tokens equal "
+        f"static (bit for bit); quantum order equal: "
+        f"{runs['resplit']['events'] == runs['static']['events']}; LS "
+        f"violation checks {tidal['checks']}, resplit checks "
+        f"{runs['resplit']['checks']}")
+    del params
+    torch.cuda.empty_cache()
+    return {mode: r["counts"] for mode, r in runs.items()}
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=8,
+    ap.add_argument("--until", type=int, default=9,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all eight ran)")
+                         "lines are printed only when all nine ran)")
     args = ap.parse_args()
 
     import torch
@@ -1721,6 +1967,16 @@ def main():
     log("== phase 8c: engine LS zamba2-1.2b + BE rwkv6-7b, dense cache, "
         "flash")
     _, ssm_cls = ssm_engine_phase(torch, args.seed)
+
+    if args.until <= 8:
+        return 1
+    log("== phase 9: tidal control plane, LS qwen3-1.7b + BE stablelm-1.6b,"
+        " colored paged KV (static, tidal, resplit)")
+    tidal_counts = tidal_phase(torch, args.seed,
+                               cls["LS"]["tbt"]["p99_ms"])
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        kres[name]["tidal_launches"] = {
+            mode: c[name] for mode, c in tidal_counts.items()}
 
     launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
                                                 "prefill_attention_paged")},

@@ -1,5 +1,7 @@
 """VRAM channel coloring: the hash models and the colored arena whose shadow
-page tables (SPTs) the ``spt_gather`` / ``spt_scatter`` kernels consume.
+page tables (SPTs) the ``spt_gather`` / ``spt_scatter`` kernels consume, and
+which the serving engine's ``coloring=True`` path carves KV page groups
+from.
 
 ``hashmaps`` and ``allocator`` are verbatim copies of the reference's
 (numpy only). Its channel reverse engineering (``reveng``), simulated device

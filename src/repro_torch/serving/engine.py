@@ -29,12 +29,34 @@ contended quanta BE receives (with no plan BE is strictly preempted), and
 point after each executed wave (an LS arrival aborts the rest of the BE
 quantum and is admitted in the same quantum).
 
+``coloring=True`` carves every tenant's KV from a
+:class:`~..core.coloring.allocator.ColoredArena` over ``hash_model``'s
+channels, split LS/BE by ``ch_be`` (paged mode: one arena group per
+request's page group, so admission is bounded by the class's colored
+bytes; dense mode: one group per tenant, which caps its slot pool).
+
+**Online control plane**: pass ``controller=`` (an
+:class:`~..core.controller.OnlineController` over a plan frontier, or a
+:class:`~..core.controller.PlanSchedule`) and the plan becomes
+time-varying. Every ``control_interval`` quanta the engine builds a
+:class:`~..core.compute.LoadSignal` from LS queue depth, slot occupancy and
+the window's SLO attainment, TTFT and TBT p99s, and adopts the controller's
+plan at the step boundary via :meth:`ServingEngine.apply_plan`: a new
+``sm_be`` takes effect at the next quantum pick, a new ``prefill_budget``
+at the next BE prefill, and a ``ch_be`` move resplits the arena and
+recolors every KV page pool. LS work arriving under the full-lending plan
+triggers an out-of-band tick, so the snap-back waits at most one quantum.
+``chunk_governor=`` (a :class:`~..core.controller.ChunkGovernor`) rides
+the same tick and retunes ``chunk_size`` and the BE prefill budget from
+the window's LS TBT p99. ``transitions`` records every adopted plan with
+the pages migrated. The resplit is placement bookkeeping: device pools and
+page tables never move, so a mid-run plan change never alters tokens.
+
 PyTorch runs eagerly, so there is no compile step; pools and dense caches
 are updated in place. Not ported yet (``NotImplementedError``): the prefix
-cache, page growth, host swap, fault injection, the online controller and
-chunk governor, coloring, the simulator backend and the disaggregation
-hooks; and the MLA, MoE, encoder and vision model families
-(``tf.check_supported``).
+cache, page growth, host swap, fault injection (with the controller
+watchdog), the simulator backend and the disaggregation hooks; and the
+MLA, MoE, encoder and vision model families (``tf.check_supported``).
 """
 from __future__ import annotations
 
@@ -47,12 +69,15 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.controller import ResourcePlan
+from ..core.coloring.allocator import (ColoredArena, OutOfColoredMemory,
+                                       split_channels)
+from ..core.compute import LoadSignal
+from ..core.controller import ResourcePlan, measured_prefix_hit
 from ..core.tenancy import TenantSpec
 from ..models import transformer as tf
 from ..models.common import dt
 from .. import obs
-from .kv_cache import PagedKVCache
+from .kv_cache import PagedKVCache, kv_bytes_per_token
 from .scheduler import (Phase, QuantumReport, TokenBudgetScheduler,
                         split_tiles)
 
@@ -110,6 +135,7 @@ class _TenantRT:
     pos: Optional[np.ndarray] = None        # [n_slots] next write position
     last_tok: Optional[np.ndarray] = None   # [n_slots] last emitted token
     active: List[Optional[Request]] = field(default_factory=list)
+    alloc_name: Optional[str] = None        # dense-mode arena group
     kv: Optional[PagedKVCache] = None       # page-table state (paged mode)
     prefix = None                           # prefix cache: not ported yet
     peak_active: int = 0                    # max concurrent decode slots seen
@@ -181,9 +207,19 @@ class _TorchBackend:
         eng = self.engine
         self._build_fns(rt)
         if eng.paged:
+            chans = cap = None
+            if eng.arena is not None:
+                chans = eng.ls_ch if rt.spec.is_ls else eng.be_ch
+                if eng.controller is not None:
+                    # tidal pools: size the device pool for the lending
+                    # maximum (every channel); live admission still runs
+                    # against the class's current colored bytes
+                    cap = tuple(range(eng.arena.num_channels))
             rt.kv = PagedKVCache(rt.cfg, rt.n_slots, eng.max_seq,
                                  eng.page_size, n_pages=eng.kv_pages,
-                                 name=rt.spec.name, device=eng.torch_device)
+                                 arena=eng.arena, channels=chans,
+                                 name=rt.spec.name, cap_channels=cap,
+                                 device=eng.torch_device)
             rt.cache = rt.kv.init_pools()
         else:
             rt.cache = tf.init_cache(rt.cfg, rt.n_slots, eng.max_seq,
@@ -466,7 +502,12 @@ class ServingEngine:
     Parameters of note (the reference's names and defaults):
       max_seq      per-slot window cap (prompt + generated tokens).
       plan         ResourcePlan; ``sm_be`` is BE's share of contended quanta,
-                   ``prefill_budget`` caps BE prefill tokens per quantum.
+                   ``prefill_budget`` caps BE prefill tokens per quantum,
+                   ``ch_be`` sets the arena's LS/BE channel split.
+      coloring     carve tenants' KV from a ColoredArena of
+                   ``arena_bytes`` over ``hash_model`` (a channel hash with
+                   ``num_channels``, ``granularity`` and ``channel_of``).
+      ch_be        BE channel share when no plan is given.
       slots_ls/be  decode-slot pool size per tenant class.
       paged        page-table KV admission (PagedKVCache) instead of
                    whole-row slots.
@@ -480,6 +521,11 @@ class ServingEngine:
       token_budget per-class per-quantum token cap: decode tokens first,
                    prefill chunks fill the remainder.
       preempt_tile BE prefill tiles with a preemption point after each.
+      controller   OnlineController / PlanSchedule: re-plans at quantum
+                   boundaries, every ``control_interval`` quanta (module
+                   docstring).
+      chunk_governor  ChunkGovernor: SLO-driven chunk_size and BE prefill
+                   budget on the same control tick.
       seed         tie-break seed for deterministic tenant ordering.
       torch_device "cuda" (default) or "cpu". Raises if CUDA is asked for
                    and absent.
@@ -487,12 +533,14 @@ class ServingEngine:
 
     def __init__(self, max_seq: int = 128, *, backend: str = "torch",
                  plan: Optional[ResourcePlan] = None, coloring: bool = False,
-                 now_fn=None, slots_ls: int = 4, slots_be: int = 4,
-                 paged: bool = False, page_size: int = 8,
+                 ch_be: float = 1 / 3, arena_bytes: int = 64 << 20,
+                 hash_model=None, now_fn=None, slots_ls: int = 4,
+                 slots_be: int = 4, paged: bool = False, page_size: int = 8,
                  kv_pages: Optional[int] = None, use_flash: bool = False,
                  chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None, hit_aware: bool = True,
-                 controller=None, prefix_cache: bool = False, seed: int = 0,
+                 controller=None, control_interval: int = 4,
+                 prefix_cache: bool = False, seed: int = 0,
                  grow_pages: bool = False, swap: bool = False,
                  faults=None, max_queue: int = 4096,
                  tracer=None, trace_name: str = "",
@@ -504,9 +552,8 @@ class ServingEngine:
                                       "yet")
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r}")
-        _not_ported(coloring=coloring, controller=controller,
-                    prefix_cache=prefix_cache, grow_pages=grow_pages,
-                    swap=swap, faults=faults, chunk_governor=chunk_governor)
+        _not_ported(prefix_cache=prefix_cache, grow_pages=grow_pages,
+                    swap=swap, faults=faults)
         self.torch_device = resolve_device(torch_device)
         self.backend_name = backend
         self.max_seq = max_seq
@@ -530,6 +577,10 @@ class ServingEngine:
         self.preempt_aborts = 0
         self.preempt_waits: List[float] = []
         self._aborted_rids: set = set()
+        # SLO-driven chunk sizing: a ChunkGovernor rides the control tick
+        # and retunes chunk_size/prefill_budget from the windowed LS TBT
+        # p99 (cause "chunk_adapt" in the transition log)
+        self.chunk_governor = chunk_governor
         self.scheduler = TokenBudgetScheduler(
             chunk_size=chunk_size, budget_ls=token_budget,
             budget_be=token_budget,
@@ -537,15 +588,32 @@ class ServingEngine:
                                if plan is not None else None),
             hit_aware=hit_aware)
         self.quantum_log: List[QuantumReport] = []
+        # bytes the arena's resplits moved (charged, never copied: the
+        # resplit is placement bookkeeping)
+        self.migrated_bytes = 0
         self.tenants: Dict[str, _TenantRT] = {}
         self.clock = now_fn or time.perf_counter
         self._rid = 0
         self.plan = plan
+        self.ch_be = plan.ch_be if plan is not None else ch_be
         self.max_queue = max(int(max_queue), 1)
         # BE quantum share: fraction of engine quanta BE receives while LS
         # work is pending (None/0 -> strict LS priority)
         self.sm_be = plan.sm_be if plan is not None else 0.0
         self._be_credit = 0.0
+        # a plan's host-tier knob (swap_quantum_pages) is stored by
+        # apply_plan as the reference does; the host tier is not ported,
+        # so nothing reads it yet
+        self.swap_quantum_pages = self._default_swap_quantum = 4
+        # online control plane (module docstring): a decide()-bearing
+        # controller makes the plan time-varying at step boundaries
+        self.controller = controller
+        self.control_interval = max(int(control_interval), 1)
+        self.transitions: List[dict] = []
+        self._applied_plan = None
+        self._last_ctl_step: Optional[int] = None
+        self._ctl_done_idx: Dict[str, int] = {}
+        self._ctl_tbt_idx: Dict[str, int] = {}
         self.slots_ls, self.slots_be = slots_ls, slots_be
         self.events: List[tuple] = []   # (quantum_idx, tenant, class)
         # deterministic tenant tie-breaking: ranks drawn from a seeded rng
@@ -555,7 +623,15 @@ class ServingEngine:
         self._step_idx = 0
         self._elapsed = None
         self._last_window = None
+        self.arena = None
         self.backend = _TorchBackend(self)
+        if coloring:
+            assert hash_model is not None
+            self.arena = ColoredArena(arena_bytes, hash_model.channel_of,
+                                      hash_model.num_channels,
+                                      hash_model.granularity)
+            self.ls_ch, self.be_ch = split_channels(
+                hash_model.num_channels, self.ch_be)
 
     # ------------------------------------------------------------------
     def add_tenant(self, spec: TenantSpec, cfg: ModelConfig, params=None,
@@ -577,9 +653,30 @@ class ServingEngine:
                                act if a.is_floating_point() else a.dtype),
                 params)
         n_slots = n_slots or (self.slots_ls if spec.is_ls else self.slots_be)
+        row_bytes = chans = None
+        if self.arena is not None:
+            chans = self.ls_ch if spec.is_ls else self.be_ch
+            if not self.paged:
+                # whole-row admission: the arena must hold one dense
+                # [max_seq] KV row per slot — cap the pool to what the
+                # class's colored bytes fit (paged mode instead allocates
+                # per-request page groups at admission)
+                row_bytes = kv_bytes_per_token(cfg) * self.max_seq
+                cap = (self.arena.free_pages(chans) * self.arena.granularity
+                       // max(row_bytes, 1))
+                if cap < 1:
+                    raise OutOfColoredMemory(
+                        f"{spec.name}: arena cannot hold one KV row")
+                n_slots = min(n_slots, int(cap))
         rt = _TenantRT(spec, cfg, params, n_slots=n_slots)
         self.backend.add_tenant(rt)
         self._tie_rank[spec.name] = float(self._tie_rng.random())
+        if self.arena is not None and not self.paged:
+            # SSM-state tenants have no attention KV; keep a nonzero slice
+            # so their placement is still tracked/colored
+            self.arena.alloc(spec.name,
+                             max(row_bytes * rt.n_slots, 1024), chans)
+            rt.alloc_name = spec.name
         self.tenants[spec.name] = rt
         return rt
 
@@ -674,6 +771,187 @@ class ServingEngine:
                        tenant=rt.spec.name, latency_ms=lat_ms,
                        t_submit=req.t_submit)
 
+    # -- online control plane ------------------------------------------
+    def _load_signal(self):
+        """LoadSignal over the window since the last control tick, with the
+        window's LS latency split into its phases: p99 TTFT (admission +
+        prefill) and p99 TBT (inter-token gaps) next to the end-to-end SLO
+        attainment."""
+        q = a = slots = slo_ok = slo_n = 0
+        ttfts, gaps = [], []
+        for name, rt in self.tenants.items():
+            if not rt.spec.is_ls:
+                continue
+            q += len(rt.queue)
+            a += sum(r is not None for r in rt.active)
+            slots += rt.n_slots
+            i0 = self._ctl_done_idx.get(name, 0)
+            self._ctl_done_idx[name] = len(rt.done)
+            g0 = self._ctl_tbt_idx.get(name, 0)
+            self._ctl_tbt_idx[name] = len(rt.tbt_gaps)
+            gaps += rt.tbt_gaps[g0:]
+            for r in rt.done[i0:]:
+                if r.failed or r.latency is None:
+                    continue
+                if r.ttft is not None:
+                    ttfts.append(r.ttft)
+                if rt.spec.slo_ms is not None:
+                    slo_n += 1
+                    slo_ok += r.latency * 1e3 <= rt.spec.slo_ms
+        # the window's samples flow through the registry's histograms and
+        # the p99s are read back out of them (nearest-rank over log-linear
+        # buckets, see obs.metrics), so the controller consumes the same
+        # numbers metrics() reports
+        reg = self.registry
+        h_ttft = reg.histogram("ls_ttft_ms")
+        h_tbt = reg.histogram("ls_tbt_ms")
+        for v in ttfts:
+            h_ttft.record(v * 1e3)
+        for v in gaps:
+            h_tbt.record(v * 1e3)
+        if slo_n:
+            reg.gauge("ls_slo_attainment").set(slo_ok / slo_n)
+        sig = LoadSignal(ls_queued=q, ls_active=a, ls_slots=max(slots, 1),
+                         ls_slo_attainment=(slo_ok / slo_n) if slo_n
+                         else None,
+                         ls_ttft_p99_ms=h_ttft.percentile(99, window=True),
+                         ls_tbt_p99_ms=h_tbt.percentile(99, window=True))
+        reg.gauge("ls_load").set(sig.ls_load)
+        reg.tick()   # close the control window
+        return sig
+
+    def _maybe_control(self):
+        """Consult the controller at the quantum boundary: every
+        ``control_interval`` quanta, plus out-of-band whenever LS work shows
+        up under a full-lending plan (the bounded tidal snap-back)."""
+        due = (self._last_ctl_step is None
+               or self._step_idx - self._last_ctl_step
+               >= self.control_interval)
+        if not due and self.sm_be >= 1.0:
+            due = any(rt.spec.is_ls and rt.has_work()
+                      for rt in self.tenants.values())
+        if not due:
+            return
+        self._last_ctl_step = self._step_idx
+        now = self.clock()
+        sig = self._load_signal()
+        # the prefix-hit gauge the reference's timeline reads: 0.0 until the
+        # prefix cache is ported (measured_prefix_hit reads rt.prefix)
+        hit = measured_prefix_hit(self)
+        self.registry.gauge("measured_prefix_hit").set(hit)
+        tr = self.tracer
+        if tr.enabled("gauge"):
+            sig_track = f"{self._trace_prefix}signals"
+            tr.counter("ls_load", now, sig.ls_load, track=sig_track)
+            if sig.ls_slo_attainment is not None:
+                tr.counter("ls_slo_attainment", now, sig.ls_slo_attainment,
+                           track=sig_track)
+            tr.counter("measured_prefix_hit", now, hit, track=sig_track)
+        if self.chunk_governor is not None:
+            self._govern_chunks(sig, now)
+        if self.controller is None:
+            return
+        plan = self.controller.decide(sig, t=float(self._step_idx))
+        if plan is not self._applied_plan:
+            cause = getattr(self.controller, "last_cause", None)
+            if cause is None:
+                cause = "initial" if self._applied_plan is None else "replan"
+            self.apply_plan(plan, cause=cause)
+        elif self.arena is not None:
+            # drain leftover off-color pages from an earlier partial
+            # migration (BE groups still borrowing LS channels)
+            debt = {n: a.channels
+                    for n, a in self.arena.allocations.items()
+                    if self.arena.isolation_violations(a)}
+            if debt:
+                self.arena.resplit(debt)
+                self.migrated_bytes += self.arena.last_resplit["bytes"]
+
+    def _govern_chunks(self, sig, now: float):
+        """SLO-driven chunk sizing: feed the window's LS TBT p99 (the same
+        registry histogram the controller reads) to the ChunkGovernor and
+        adopt its decision — chunk_size plus the derived BE prefill budget
+        — logged as a ``chunk_adapt`` transition next to plan moves."""
+        decision = self.chunk_governor.update(sig.ls_tbt_p99_ms)
+        if decision is None:
+            return
+        chunk, budget = decision
+        self.chunk_size = chunk
+        self.scheduler.chunk_size = chunk
+        self.scheduler.set_prefill_budget(budget)
+        self.transitions.append({"step": self._step_idx,
+                                 "sm_be": float(self.sm_be),
+                                 "ch_be": float(self.ch_be),
+                                 "pages_moved": 0, "bytes_moved": 0,
+                                 "pinned_groups": 0,
+                                 "chunk_size": int(chunk),
+                                 "prefill_budget": int(budget),
+                                 "cause": "chunk_adapt"})
+        self.tracer.instant("plan", "chunk_adapt", now,
+                            f"{self._trace_prefix}plan",
+                            sm_be=float(self.sm_be),
+                            ch_be=float(self.ch_be),
+                            chunk_size=int(chunk),
+                            prefill_budget=int(budget),
+                            step=self._step_idx)
+
+    def _channel_sets(self, ch_be: float):
+        """Engine-local channel sets for a plan's ``ch_be`` (the plan's own
+        sets were drawn for the controller's DeviceSpec, whose channel
+        count may differ from the hash model's). ``ch_be >= 1`` is the
+        lending plan: BE may borrow every channel while LS keeps its
+        assignment, so snap-back never migrates LS pages."""
+        C = self.arena.num_channels
+        if ch_be >= 1.0 - 1e-9:
+            return self.ls_ch, tuple(range(C))
+        return split_channels(C, ch_be)
+
+    def apply_plan(self, plan: ResourcePlan, cause: str = "replan"):
+        """Adopt a ResourcePlan at a step boundary: the BE quantum share
+        moves immediately; a ``ch_be`` move resplits the arena (off-color
+        pages migrate to the new sets) and recolors every KV page pool so
+        future page groups land on the new split. Device pools and page
+        tables are untouched — a mid-run plan change never alters tokens,
+        and no device copy is made. The migration's moved bytes are
+        charged to ``migrated_bytes``."""
+        prev = self._applied_plan
+        self.sm_be = plan.sm_be
+        # prefill-budget knob: tidal re-planning throttles BE prefill
+        # tokens per quantum, not only BE's SM share
+        self.scheduler.set_prefill_budget(
+            getattr(plan, "prefill_budget", None))
+        sq = getattr(plan, "swap_quantum_pages", None)
+        self.swap_quantum_pages = (self._default_swap_quantum if sq is None
+                                   else max(int(sq), 1))
+        moved = 0
+        if self.arena is not None and (prev is None
+                                       or plan.ch_be != prev.ch_be):
+            new_ls, new_be = self._channel_sets(plan.ch_be)
+            mapping = {}
+            for rt in self.tenants.values():
+                chans = new_ls if rt.spec.is_ls else new_be
+                if rt.kv is not None:
+                    mapping.update(rt.kv.recolor(chans))
+                elif rt.alloc_name is not None:
+                    mapping[rt.alloc_name] = chans
+            self.ls_ch, self.be_ch = new_ls, new_be
+            moved = sum(self.arena.resplit(mapping).values())
+            self.migrated_bytes += self.arena.last_resplit["bytes"]
+        self._applied_plan = plan
+        self.transitions.append({"step": self._step_idx,
+                                 "sm_be": plan.sm_be, "ch_be": plan.ch_be,
+                                 "pages_moved": int(moved),
+                                 "bytes_moved": int(
+                                     moved * (self.arena.granularity
+                                              if self.arena else 0)),
+                                 "pinned_groups": 0,
+                                 "cause": cause})
+        self.tracer.instant("plan", cause, self.clock(),
+                            f"{self._trace_prefix}plan",
+                            sm_be=float(plan.sm_be),
+                            ch_be=float(plan.ch_be),
+                            pages_moved=int(moved), step=self._step_idx)
+
     # ------------------------------------------------------------------
     def _pick(self, rts: List[_TenantRT]) -> List[_TenantRT]:
         """Earliest outstanding request first (FIFO across tenants), ties
@@ -685,7 +963,10 @@ class ServingEngine:
         """One engine quantum: choose a tenant class via the plan's BE
         quantum share, then run one batched quantum for one tenant of that
         class. LS strictly preempts BE at this boundary when no plan grants
-        BE a share."""
+        BE a share. With an online controller or chunk governor attached
+        this boundary is also where re-plans land."""
+        if self.controller is not None or self.chunk_governor is not None:
+            self._maybe_control()
         ls = [rt for rt in self.tenants.values()
               if rt.spec.is_ls and rt.has_work()]
         be = [rt for rt in self.tenants.values()
@@ -813,10 +1094,27 @@ class ServingEngine:
             out["_preempt"] = {"tile": self.preempt_tile,
                                "aborts": self.preempt_aborts,
                                "wait": self._pcts(self.preempt_waits)}
+        if self.chunk_governor is not None:
+            out["_chunk_governor"] = self.chunk_governor.stats()
         if self.plan is not None:
             out["_plan"] = {"sm_be": self.plan.sm_be,
                             "ch_be": self.plan.ch_be,
                             "thres_dram": self.plan.thres_dram}
+        applied = self._applied_plan
+        if applied is not None or self.transitions:
+            out["_online"] = {
+                "sm_be": applied.sm_be if applied else None,
+                "ch_be": applied.ch_be if applied else None,
+                "transitions": len(self.transitions),
+                "pages_moved": sum(t["pages_moved"]
+                                   for t in self.transitions),
+                "migrated_bytes": int(self.migrated_bytes),
+            }
+        if self.arena is not None:
+            out["_coloring"] = {
+                name: {"violations": self.arena.isolation_violations(a),
+                       "pages": a.n_pages}
+                for name, a in self.arena.allocations.items()}
         if (self.registry.ticks or self.registry.histograms
                 or self.registry.gauges):
             out["_registry"] = self.registry.snapshot()

@@ -1,4 +1,5 @@
-"""Paged KV cache for the serving engine (vLLM-style paging), in PyTorch.
+"""Paged KV cache for the serving engine (vLLM-style paging, SGDRC-colored),
+in PyTorch.
 
 The KV cache of a tenant's whole decode-slot pool lives in one shared *page
 pool* per layer ([n_pages, Hkv, page_size, Dh] for GQA) instead of per-slot
@@ -7,13 +8,18 @@ page table ([n_slots, P] int32); a prefill chunk writes its tokens' page
 entries, decode appends one (page, offset) entry per row — O(tokens)
 traffic, never a full-cache rewrite.
 
-The host-side metadata (page tables, free lists, refcounts) is the
-reference's numpy bookkeeping, copied as it is. The device side is torch:
-the pools (``init_pools``), the page table as an int32 tensor on the
+SGDRC tie-in: with a :class:`~repro_torch.core.coloring.allocator.ColoredArena`
+attached (``arena=``), every page group a request acquires is carved from
+the tenant class's VRAM-channel set, so admission is bounded by *colored*
+bytes, not slot count, and :meth:`PagedKVCache.recolor` rebinds the groups
+at a plan's ``ch_be`` move. The arena is placement bookkeeping: the device
+pools and page tables never move with it.
+
+The host-side metadata (page tables, free lists, refcounts, arena groups)
+is the reference's numpy bookkeeping, copied as it is. The device side is
+torch: the pools (``init_pools``), the page table as an int32 tensor on the
 engine's device (``device_page_table``), and the copy-on-write page copy
-(``fork_cow``). SGDRC coloring (``arena=``, pages carved from a
-ColoredArena's channel set) is a later slice: passing an arena raises
-``NotImplementedError``, and the arena branches below stay inert until then.
+(``fork_cow``).
 """
 from __future__ import annotations
 
@@ -23,29 +29,19 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.coloring.allocator import ColoredArena, OutOfColoredMemory
+from ..core.costmodel import kv_token_bytes
 from ..models import transformer as tf
 from ..models.common import dt
-
-
-class OutOfColoredMemory(RuntimeError):
-    """The pool (or, with coloring, the class's colored bytes) cannot hold
-    the pages a request needs."""
-
-
-def kv_token_bytes(cfg: ModelConfig, dtype_bytes: float) -> float:
-    """KV-cache bytes one token occupies in ONE attention layer
-    (``repro.core.costmodel.kv_token_bytes``): MLA caches the compressed
-    latent (R + rope), GQA caches k + v heads."""
-    if cfg.attn_type == "mla":
-        return (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * dtype_bytes
-    return 2 * cfg.num_kv_heads * cfg.head_dim * dtype_bytes
 
 
 def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: Optional[int] = None
                        ) -> int:
     """KV-cache bytes one token occupies across all layers (GQA: 2·Hkv·Dh
     per attention layer; MLA: R + rope latent floats per layer; hybrid
-    models add one shared-attention cache per layer period)."""
+    models add one shared-attention cache per layer period). Per-layer
+    figure comes from ``core.costmodel.kv_token_bytes`` — one formula for
+    the simulator's write-cost term and this capacity accounting."""
     if dtype_bytes is None:
         dtype_bytes = torch.empty((), dtype=dt(cfg.activation_dtype)) \
             .element_size()
@@ -98,14 +94,11 @@ class PagedKVCache:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int,
                  page_size: int, *, n_pages: Optional[int] = None,
-                 dtype=None, arena=None,
+                 dtype=None, arena: Optional[ColoredArena] = None,
                  channels: Optional[Sequence[int]] = None, name: str = "kv",
                  cap_channels: Optional[Sequence[int]] = None,
                  sharing: bool = False, device="cuda"):
         assert tf.pageable(cfg), f"{cfg.name} is not pageable"
-        if arena is not None:
-            raise NotImplementedError(
-                "colored page pools (arena=) are not ported yet")
         self.device = torch.device(device)
         self.cfg = cfg
         self.n_slots = n_slots

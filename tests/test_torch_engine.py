@@ -6,8 +6,10 @@ under ``ResourcePlan(sm_be=0.3)`` whose tokens and quantum order
 (``eng.events``) equal the reference's; a ``preempt_tile=2`` run with
 forced tile-boundary preemption. The reference's tokens are chunking-
 invariant (``tests/test_scheduler.py``), so one reference run per variant
-is the oracle for every chunk size. Plus the import guard: the port never
-imports JAX or the reference package.
+is the oracle for every chunk size. One LS token stream each for the
+``gemma2-9b`` (softcaps, local window: the torch-op attention core) and
+``nemotron-4-15b`` (``sq_relu``) smoke configs, paged and chunked. Plus the
+import guard: the port never imports JAX or the reference package.
 """
 import os
 import re
@@ -16,6 +18,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ from repro_torch import bridge
 from repro_torch.configs import smoke_config
 from repro_torch.core.controller import ResourcePlan
 from repro_torch.core.tenancy import TenantSpec
+from repro_torch.models import transformer as tf
 from repro_torch.serving import Phase, ServingEngine
 
 MAX_SEQ = 24
@@ -164,6 +168,34 @@ def test_preempt_tile_matches_reference(tiny):
     assert aborts[0] == aborts[1] > 0
 
 
+@pytest.mark.parametrize("name", ["gemma2-9b", "nemotron-4-15b"])
+def test_family_tokens_match_reference(name):
+    """One LS stream on the full smoke config (f32; gemma2: four layers,
+    window 16 reached by the longer prompts), paged with chunk 5 and
+    ``use_flash`` (which gemma2's softcapped layers decline). Weights from
+    the port's seeded init, so both sides and every run see the same
+    ones (the reference's own init is salted per process, see
+    ``tests/test_torch_models.py``)."""
+    cfg, jcfg = smoke_config(name), jsmoke(name)
+    tp = tf.init_params(cfg, 3, "cpu")
+    jp = jax.tree.map(jnp.asarray, bridge.to_numpy(tp))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, L) for L in (7, 19, 12)]
+    kw = dict(max_seq=32, slots_ls=3, paged=True, page_size=4,
+              use_flash=True, chunk_size=5)
+    outs = []
+    for Eng, Spec, c, p, extra in ((JEngine, JSpec, jcfg, jp, {}),
+                                   (ServingEngine, TenantSpec, cfg, tp,
+                                    {"torch_device": "cpu"})):
+        eng = Eng(**kw, **extra)
+        eng.add_tenant(Spec("ls0", "LS"), c, params=p)
+        reqs = [eng.submit("ls0", q, max_new=6) for q in prompts]
+        eng.run_until_idle()
+        outs.append([[int(t) for t in r.output] for r in reqs])
+    assert outs[0] == outs[1]
+    assert all(len(o) == 6 for o in outs[1])
+
+
 def test_metrics_shape(tiny):
     _, cfg, _, tp = tiny
     eng = ServingEngine(max_seq=MAX_SEQ, slots_ls=2, paged=True, page_size=4,
@@ -217,7 +249,14 @@ def test_engine_runs_on_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("opt", ["prefix_cache", "grow_pages", "swap",
-                                 "coloring"])
+                                 "faults"])
 def test_unported_options_raise(opt):
     with pytest.raises(NotImplementedError):
         ServingEngine(torch_device="cpu", **{opt: True})
+
+
+def test_unknown_or_unported_backend_raises():
+    with pytest.raises(NotImplementedError):
+        ServingEngine(torch_device="cpu", backend="sim")
+    with pytest.raises(ValueError):
+        ServingEngine(torch_device="cpu", backend="jax")

@@ -1,18 +1,46 @@
 """The port's model against the reference on the same weights and inputs.
 
 ``rms_norm`` and ``apply_rope``, then ``decode_step`` / ``prefill_step``
-logits and updated caches for the ``stablelm-1.6b`` (MHA) and ``qwen3-1.7b``
-(GQA 2:1, qk-norm, tied embeddings) smoke configs in f32, over dense and
-paged caches, Sq in {8, 3, 1}, ragged per-row positions and a sentinel row,
-with ``use_flash`` on and off. Weights and caches go from the reference to
-the port through ``repro_torch.bridge``.
+logits and updated caches for the ``stablelm-1.6b`` (MHA), ``qwen3-1.7b``
+(GQA 2:1, qk-norm, tied embeddings), ``gemma2-9b`` (alternating local
+window 16 / global layers, attention softcap 50, final softcap 30, gelu:
+the torch-op core ``use_flash`` falls back to) and ``nemotron-4-15b``
+(``sq_relu`` MLP) smoke configs in f32, over dense and paged caches, Sq in
+{8, 3, 1}, ragged per-row positions and a sentinel row, with ``use_flash``
+on and off. Weights and caches go from the reference to the port through
+``repro_torch.bridge``.
 
-Tolerance 1e-4 (atol and rtol): both sides compute in f32, but XLA and
-ATen sum the matrix products and the softmax in other orders, which moves
-the last few bits of every layer's output; 1e-4 leaves two orders of
+Tolerance ``TOL`` 1e-4 (atol and rtol): both sides compute in f32, but XLA
+and ATen sum the matrix products and the softmax in other orders, which
+moves the last few bits of every layer's output; 1e-4 leaves two orders of
 magnitude over what two layers of that drift give, and a wrong mask, rope
 or cache write gives errors of order one.
+
+The reference's own ``init_params`` does not draw the same weights in two
+processes: ``models/common.py::_fold`` folds Python's salted string
+``hash`` of each leaf's path into the key. The fixture below runs that
+init with the fold keyed by ``zlib.crc32`` of the path instead, so every
+run of this file tests the same weights.
+
+``GEMMA2_TOL`` (atol 5e-3) and ``NEMOTRON_TOL`` (atol 1e-3), both with
+rtol 1e-4, hold the new families, because the drift grows with depth and
+with the weight draw. Measured over 88 draws (88 values of
+``PYTHONHASHSEED`` with the salted fold; every step case, and the forward
+in 64 of them), the port's largest error against the reference was
+1.8e-3 for gemma2 (median 1.3e-4; ``TOL`` failed in 29 of the 88 draws),
+3.5e-4 for nemotron (``TOL`` failed in 6) and 1.1e-4 for stablelm (in 0;
+its forward, not tested here, reached 1.8e-4). gemma2's smoke config has four layers, the others two. Its largest error
+by layer in 24 draws was 1e-5, 6e-5, 4.5e-4 and 5.4e-4 (K/V cache of
+layers 0-3, flash on or off alike). That is summation order, not the
+softcap or window path: with both softcaps off the spread grows (4.7e-4,
+13 of 24 draws over 1e-4), and without the window it is unchanged. Each
+tolerance is about 2.8x the worst of the 88 draws. The smallest mutation
+of the gemma2 path measured is still 12x over ``GEMMA2_TOL``: final
+softcap dropped, 6.1e-2; attention softcap 51 for 50, 0.54; window 17 for
+16, 0.25.
 """
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,30 +55,46 @@ from repro_torch.configs import smoke_config
 from repro_torch.models import common, transformer as tf
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+GEMMA2_TOL = dict(rtol=1e-4, atol=5e-3)
+NEMOTRON_TOL = dict(rtol=1e-4, atol=1e-3)
+NAMES = ("stablelm-1.6b", "qwen3-1.7b", "gemma2-9b", "nemotron-4-15b")
+
+
+def _fold_by_crc(key, path: str):
+    """The reference's ``_fold`` keyed by a stable hash of the path."""
+    return jax.random.fold_in(key, np.uint32(zlib.crc32(path.encode())
+                                             % (2 ** 31)))
 SMAX, PS, P = 24, 4, 6          # dense window; paged: page size, pages/row
 
 
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for name in ("stablelm-1.6b", "qwen3-1.7b"):
+    for name in NAMES:
         jcfg = jsmoke(name)
-        jp = jtf.init_params(jax.random.key(0), jcfg)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jcommon, "_fold", _fold_by_crc)
+            jp = jtf.init_params(jax.random.key(0), jcfg)
         out[name] = (jcfg, smoke_config(name), jp,
                      bridge.params_from_numpy(jax.tree.map(np.asarray, jp),
                                               "cpu"))
     return out
 
 
-def _close(got, want):
-    np.testing.assert_allclose(bridge.to_numpy(got), np.asarray(want), **TOL)
+def _tol(name):
+    return {"gemma2-9b": GEMMA2_TOL,
+            "nemotron-4-15b": NEMOTRON_TOL}.get(name, TOL)
 
 
-def _caches_close(tcache, jcache):
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(bridge.to_numpy(got), np.asarray(want), **tol)
+
+
+def _caches_close(tcache, jcache, tol=TOL):
     jt = jax.tree.map(np.asarray, jcache)     # a no-op on numpy leaves
     for s, leaves in tcache["layers"].items():
         for k, leaf in leaves.items():
-            _close(leaf, jt["layers"][s][k])
+            _close(leaf, jt["layers"][s][k], tol)
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 32), (3, 4, 2, 64)])
@@ -129,7 +173,7 @@ def ref_steps(models):
 
 @pytest.mark.parametrize("flash", [False, True])
 @pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("name", ["stablelm-1.6b", "qwen3-1.7b"])
+@pytest.mark.parametrize("name", NAMES)
 def test_steps_match_reference(models, ref_steps, name, paged, flash):
     """prefill_step Sq=8, prefill_step Sq=3, decode_step: logits and the
     whole updated cache after each call, dense or paged, flash or not."""
@@ -145,8 +189,8 @@ def test_steps_match_reference(models, ref_steps, name, paged, flash):
                         use_flash=flash)
         assert tl.shape == (3, 1, cfg.vocab_size)
         assert bool(torch.isfinite(tl).all())
-        _close(tl, jl)
-        _caches_close(tcache, jcache)
+        _close(tl, jl, _tol(name))
+        _caches_close(tcache, jcache, _tol(name))
 
 
 @pytest.mark.parametrize("pos", [5, SMAX])
@@ -168,13 +212,15 @@ def test_decode_scalar_pos_write(models, pos):
     _caches_close(tcache, jcache)
 
 
-def test_forward_matches_reference(models):
-    jcfg, cfg, jp, tp = models["qwen3-1.7b"]
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "gemma2-9b",
+                                  "nemotron-4-15b"])
+def test_forward_matches_reference(models, name):
+    jcfg, cfg, jp, tp = models[name]
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 7))
     jl, _ = jtf.forward(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, aux = tf.forward(tp, cfg, {"tokens": torch.from_numpy(toks)})
     assert aux == {}
-    _close(tl, jl)
+    _close(tl, jl, _tol(name))
 
 
 def test_unported_families_raise():

@@ -263,7 +263,7 @@ def test_mamba2_block(jx, carry):
 # ---------------------------------------------------------------------------
 
 def test_supported_families():
-    for name in FAMILIES + ("qwen3-1.7b", "gemma2-9b"):
+    for name in FAMILIES + ("qwen3-1.7b", "gemma2-9b", "nemotron-4-15b"):
         tf.check_supported(smoke_config(name))
     for name in ("deepseek-v2-236b", "moonshot-v1-16b-a3b", "whisper-small",
                  "llama-3.2-vision-90b"):
