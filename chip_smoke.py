@@ -101,14 +101,36 @@ non-zero:
              TTFT/TBT and BE tokens/s (a smoke), and the host ms of the
              control tick and plan adoption. The resplit makes no device
              copy (placement bookkeeping, as in the reference).
+10. hierarchy — the KV memory hierarchy and the fault plane on phase 5's
+             engine (uncolored) and weights, 8 LS prompts of one 768-token
+             prefix and 8 BE prompts of one 512-token prefix (suffixes of
+             64-256 tokens), 32 new tokens; each tenant's first request
+             warms before the other 7 arrive. (a) prefix cache off and on:
+             tokens bit-equal, LS hit tokens >= 7 x 768, prefill tokens
+             computed lower by exactly the hit tokens; a planted fault (one
+             shared tree page's K zeroed) must change later hits' tokens;
+             an 800-token LS prefix (not a multiple of the chunk) reported:
+             tokens equal or the first diverging request, token and K/V
+             layer. (b) grow_pages + swap at half the batch's full page
+             extent, cold_dtype fp16 and int8: every request completes,
+             fp16 swaps out and in and its tokens equal (a)'s unpressured
+             run; bytes, pcie_s and host ms a put and a get printed. (c) a
+             seeded FaultPlane storm (swap write/read failures, page
+             corruption, allocator faults) over (b)'s fp16 run on a
+             virtual step clock: injections, recoveries and a CRC catch
+             required, survivors bit-equal to (b), LS never shed. Then the
+             ladder's flash_to_dense rung on phase 6b's f32 LS tenant: its
+             tokens equal the torch-op engine's and no kernel launches
+             after it. Every bf16 prefill of (a)-(c) on "wgmma".
 
-Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9 are read with the
+Launch counts of phases 5, 6, 6b, 7, 8a, 8c, 9 and 10 are read with the
 counters set to 0 just before each phase drives its path (phases 7 and 8a
 count their drive, before their checks and timings). The next-to-last line
 is one JSON object with every kernel's launches and times (phase 3's f32
 rows of the four engine kernels under "float32", with phase 6b's launches;
-phase 9's runs under "tidal_launches" of the two paged rows); the last line
-is the device JSON.
+phase 9's runs under "tidal_launches" and phase 10's (a)-(c) under
+"hierarchy_launches" of the two paged rows); the last line is the device
+JSON. ``--from 10`` runs phases 1-3 and 10 alone (no result lines).
 """
 from __future__ import annotations
 
@@ -845,6 +867,14 @@ def model_phase(torch, seed):
 # phases 5-6: the serving engine
 # ---------------------------------------------------------------------------
 
+def _engine_plan():
+    """The LS+BE engines' static plan: BE gets 0.3 of contended quanta."""
+    from repro_torch.core.controller import ResourcePlan
+    return ResourcePlan(sm_be=0.3, ch_be=1 / 3, thres_dram=0.4,
+                        ls_channels=(), be_channels=(),
+                        max_ls_inflation=0.25)
+
+
 def _serve(torch, seed, *, paged, chunk, ls_lens, be_lens, max_new,
            slots, max_seq, plan=None, params=None, ls_cfg=None):
     from repro_torch.configs import get_config
@@ -887,14 +917,11 @@ def _serve(torch, seed, *, paged, chunk, ls_lens, be_lens, max_new,
 
 def engine_phase(torch, seed):
     import numpy as np
-    from repro_torch.core.controller import ResourcePlan
     from repro_torch.kernels import ops
     rng = np.random.default_rng(seed + 7)
     ls_lens = [int(x) for x in rng.integers(128, 1025, 8)]
     be_lens = [int(x) for x in rng.integers(512, 1537, 8)]
-    plan = ResourcePlan(sm_be=0.3, ch_be=1 / 3, thres_dram=0.4,
-                        ls_channels=(), be_channels=(),
-                        max_ls_inflation=0.25)
+    plan = _engine_plan()
     log(f"  LS prompts {ls_lens}; BE prompts {be_lens}; max_new 32")
     ops.reset_launch_counts()
     eng, _, _ = _serve(torch, seed, paged=True, chunk=256, ls_lens=ls_lens,
@@ -1600,7 +1627,6 @@ def ssm_engine_phase(torch, seed):
     """(c) the dense engine: LS zamba2-1.2b + BE rwkv6-7b, use_flash."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.core.controller import ResourcePlan
     from repro_torch.core.tenancy import TenantSpec
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
@@ -1610,9 +1636,7 @@ def ssm_engine_phase(torch, seed):
                                                      replace=False), 2)]
             for c in ("LS", "BE")}
     zamba, rwkv = get_config("zamba2-1.2b"), get_config("rwkv6-7b")
-    plan = ResourcePlan(sm_be=0.3, ch_be=1 / 3, thres_dram=0.4,
-                        ls_channels=(), be_channels=(),
-                        max_ls_inflation=0.25)
+    plan = _engine_plan()
     max_new = 16
     log(f"  LS zamba2-1.2b prompts {lens['LS']}; BE rwkv6-7b prompts "
         f"{lens['BE']}; max_new {max_new}")
@@ -1690,25 +1714,31 @@ def _tidal_engine(params, *, controller=None, governor=None, plan=None):
     return eng
 
 
-def _timed_control(eng):
-    """Wrap the engine's control tick and plan adoption, and the arena's
-    operations, with host timers (a call made inside another counts in
-    both)."""
+def _timed_calls(targets):
+    """Wrap each ``(obj, method, key)`` with a host timer whose ms land in
+    ``spent[key]`` (a call made inside another counts in both)."""
     spent = {}
-    for obj, name in ((eng, "_maybe_control"), (eng, "apply_plan"),
-                      (eng.arena, "alloc"), (eng.arena, "release"),
-                      (eng.arena, "resplit"),
-                      (eng.arena, "isolation_violations")):
+    for obj, name, key in targets:
         inner = getattr(obj, name)
-        spent[name] = []
+        spent.setdefault(key, [])
 
-        def timed(*a, _inner=inner, _key=name, **kw):
+        def timed(*a, _inner=inner, _key=key, **kw):
             t0 = time.perf_counter()
-            out = _inner(*a, **kw)
-            spent[_key].append((time.perf_counter() - t0) * 1e3)
-            return out
+            try:
+                return _inner(*a, **kw)
+            finally:
+                spent[_key].append((time.perf_counter() - t0) * 1e3)
         setattr(obj, name, timed)
     return spent
+
+
+def _timed_control(eng):
+    """The engine's control tick and plan adoption, and the arena's
+    operations, under host timers."""
+    return _timed_calls(
+        [(eng, n, n) for n in ("_maybe_control", "apply_plan")]
+        + [(eng.arena, n, n) for n in ("alloc", "release", "resplit",
+                                       "isolation_violations")])
 
 
 def _host_line(spent):
@@ -1888,13 +1918,443 @@ def tidal_phase(torch, seed, ls_tbt_p99_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the KV memory hierarchy and the fault plane on the engine
+# ---------------------------------------------------------------------------
+
+HIER_MAX_NEW = 32
+# phase 10c's storm on a virtual clock of one unit an engine step: Poisson
+# rates per step and the windows' length in steps
+STORM_RATES = {"swap_write_fail": 0.02, "swap_read_fail": 0.02,
+               "page_corrupt": 0.03, "alloc_fail": 0.01}
+STORM_DURATION, STORM_HORIZON = 8.0, 1000.0
+
+
+def _hier_engine(params, *, ls_only=False, **kw):
+    """Phase 5's paged LS qwen3-1.7b + BE stablelm-1.6b engine (uncolored)
+    with the hierarchy's options in ``kw``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.serving import ServingEngine
+    kw.setdefault("plan", _engine_plan())
+    eng = ServingEngine(max_seq=2048, paged=True, page_size=PAGE,
+                        use_flash=True, chunk_size=256, slots_ls=8,
+                        slots_be=8, torch_device="cuda", **kw)
+    eng.add_tenant(TenantSpec("ls-qwen3", "LS"), get_config("qwen3-1.7b"),
+                   params=params["ls"])
+    if not ls_only:
+        eng.add_tenant(TenantSpec("be-stablelm", "BE"),
+                       get_config("stablelm-1.6b"), params=params["be"])
+    return eng
+
+
+def _shared_prompts(rng, vocab, prefix_len, n):
+    """``n`` prompts of one common prefix and distinct suffixes of 64-256
+    tokens whose first tokens all differ, so no hit reaches past the
+    prefix."""
+    import numpy as np
+    prefix = rng.integers(0, vocab, prefix_len)
+    firsts = rng.choice(vocab, n, replace=False)
+    return [np.concatenate([prefix, [f], rng.integers(0, vocab, int(L) - 1)])
+            for f, L in zip(firsts, rng.integers(64, 257, n))]
+
+
+def _capture_kv(eng, tenant):
+    """Keep a copy of each request's prompt K/V pages (every layer) when
+    its first token is seeded, keyed by rid (``_kv_list`` orders them as
+    the tenant's requests)."""
+    import torch
+    rt, store = eng.tenants[tenant], {}
+    inner = eng.backend._seed_first_token
+
+    def seed(rt_, req, tok):
+        if rt_ is rt:
+            n = rt.kv.pages_for(len(req.tokens))
+            pages = torch.as_tensor(rt.kv.page_table[req.slot, :n]
+                                    .astype("int64"),
+                                    device=rt.kv.device)
+            store[req.rid] = {k: leaf.index_select(1, pages).clone()
+                              for k, leaf in rt.cache["layers"]["s0"].items()}
+        inner(rt_, req, tok)
+    eng.backend._seed_first_token = seed
+    return store
+
+
+def _kv_list(store, reqs):
+    return [store[r.rid] for r in reqs]
+
+
+def _first_kv_diff(a, b, first_page=0):
+    """(layer, leaf, position) of the first K/V element that differs
+    between two captures of one prompt's pages, from ``first_page`` on, or
+    None."""
+    for layer in range(a["k"].shape[0]):
+        for leaf in ("k", "v"):
+            d = (a[leaf][layer, first_page:]
+                 != b[leaf][layer, first_page:])   # [n, Hkv, page, D]
+            if bool(d.any()):
+                pos = d.any(dim=3).any(dim=1).reshape(-1)
+                return (layer, leaf,
+                        first_page * PAGE + int(pos.nonzero()[0, 0]))
+    return None
+
+
+def _serve_warm(torch, eng, prompts, *, after_warm=None, clock=None):
+    """Submit each tenant's first prompt, step until it decodes (its prompt
+    pages donated to the tree when the prefix cache is on), then submit the
+    rest and run to idle. ``clock``: a virtual step clock to advance."""
+    from repro_torch.serving import Phase
+    reqs = {t: [eng.submit(t, p[0], max_new=HIER_MAX_NEW)]
+            for t, p in prompts.items()}
+    firsts = [r[0] for r in reqs.values()]
+    t0 = time.perf_counter()
+    while any(r.phase not in (Phase.DECODING, Phase.FINISHED)
+              for r in firsts):
+        if clock is not None:
+            clock["t"] += 1.0
+        eng.step()
+    if after_warm is not None:
+        after_warm(eng, {t: r[0] for t, r in reqs.items()})
+    for t, p in prompts.items():
+        reqs[t] += [eng.submit(t, q, max_new=HIER_MAX_NEW) for q in p[1:]]
+    _drive_idle(eng, clock)
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def _drive_idle(eng, clock=None, stall_cap=10_000):
+    """Step until no tenant has work; a step that makes no progress inside
+    a fault window (a deferral) does not end the run."""
+    stall = 0
+    while stall < stall_cap:
+        if clock is not None:
+            clock["t"] += 1.0
+        if eng.step():
+            stall = 0
+        elif not any(rt.has_work() for rt in eng.tenants.values()):
+            return
+        else:
+            stall += 1
+    raise Check("engine wedged: no progress in "
+                f"{stall_cap} steps with work left")
+
+
+def _toks(reqs):
+    return {t: [None if r.failed else list(r.output) for r in rs]
+            for t, rs in reqs.items()}
+
+
+def _first_divergence(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            j = next((k for k, (u, v) in enumerate(zip(x, y)) if u != v),
+                     min(len(x), len(y)))
+            return i, j
+    return None
+
+
+def _timed_host(eng):
+    """Every tenant's HostSwapPool put and get under host timers."""
+    return _timed_calls([(rt.host, n, n) for rt in eng.tenants.values()
+                         for n in ("put", "get")])
+
+
+def _p50(xs):
+    xs = sorted(xs)
+    return xs[(len(xs) - 1) // 2] if xs else None
+
+
+def hierarchy_phase(torch, seed):
+    """(a) the prefix cache, (b) page growth and the host swap tier in fp16
+    and int8, (c) a seeded fault storm over (b), and the ladder's
+    flash_to_dense rung in f32, on phase 5's models and weights. Returns
+    the launches of (a)-(c) and what the JSON line records."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import FaultPlane
+    LS, BE = "ls-qwen3", "be-stablelm"
+    t_phase = time.perf_counter()
+    params = {"ls": tf.init_params(get_config("qwen3-1.7b"), seed, "cuda",
+                                   dtype=torch.bfloat16),
+              "be": tf.init_params(get_config("stablelm-1.6b"), seed + 1,
+                                   "cuda", dtype=torch.bfloat16)}
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(seed + 17)
+    ls_vocab = get_config("qwen3-1.7b").vocab_size
+    prompts = {LS: _shared_prompts(rng, ls_vocab, 768, 8),
+               BE: _shared_prompts(rng, get_config("stablelm-1.6b")
+                                   .vocab_size, 512, 8)}
+    unaligned = _shared_prompts(rng, ls_vocab, 800, 8)
+    log(f"  weights (phase 5's seeds) ready in "
+        f"{time.perf_counter() - t_phase:.1f}s; LS prompts "
+        f"{[len(p) for p in prompts[LS]]} (768-token prefix), BE prompts "
+        f"{[len(p) for p in prompts[BE]]} (512); max_new {HIER_MAX_NEW}; "
+        "first request of each tenant warms, then the other 7 arrive")
+    ops.reset_launch_counts()
+
+    # -- (a) prefix cache -------------------------------------------------
+    runs = {}
+    for name, kw in (("off", {}), ("on", {"prefix_cache": True})):
+        eng = _hier_engine(params, **kw)
+        kv = _capture_kv(eng, LS)
+        reqs, wall = _serve_warm(torch, eng, prompts)
+        m = eng.metrics()
+        runs[name] = {"toks": _toks(reqs), "wall": wall,
+                      "kv": _kv_list(kv, reqs[LS]),
+                      "computed": {t: eng.tenants[t].prefill_computed
+                                   for t in prompts},
+                      "hits": {t: [r.hit_tokens for r in rs]
+                               for t, rs in reqs.items()},
+                      "ttft": [r.ttft * 1e3 for r in reqs[LS][1:]],
+                      "ttft0": reqs[LS][0].ttft * 1e3}
+        log(f"  (a) prefix {name}: {len(eng.events)} quanta in {wall:.2f}s;"
+            f" LS TTFT first {runs[name]['ttft0']:.1f} ms, later 7 p50 "
+            f"{_p50(runs[name]['ttft']):.1f} ms; prefill computed "
+            f"{runs[name]['computed']}"
+            + (f"; prefix_cache LS {m[LS]['prefix_cache']} BE "
+               f"{m[BE]['prefix_cache']}" if name == "on" else ""))
+        for t, rs in reqs.items():
+            for r in rs:
+                require(not r.failed and len(r.output) == HIER_MAX_NEW,
+                        f"(a {name}) request {r.rid} ({t}): {r.output}")
+        del eng
+    off, on = runs["off"], runs["on"]
+    for t in prompts:
+        div = _first_divergence(off["toks"][t], on["toks"][t])
+        require(div is None, f"(a) {t} tokens differ with the prefix cache "
+                f"on: request {div}")
+        hit = sum(on["hits"][t])
+        saved = off["computed"][t] - on["computed"][t]
+        require(saved == hit, f"(a) {t}: prefill computed lower by {saved}"
+                f", hit tokens {hit}")
+    ls_hit = sum(on["hits"][LS])
+    require(ls_hit >= 7 * 768, f"(a) LS hit tokens {ls_hit} < 7 x 768")
+    # the K/V each LS prompt leaves in every layer: a hit's suffix rows
+    # read the shared pages in layer l and write layer l + 1's K/V
+    for i, (a, b) in enumerate(zip(off["kv"], on["kv"])):
+        diff = _first_kv_diff(a, b)
+        require(diff is None, f"(a) LS request {i}: prompt K/V differ "
+                f"with the prefix cache on, first at (layer, leaf, "
+                f"position) {diff}")
+    log(f"  (a) tokens bit-equal prefix on/off (16 requests), and every LS "
+        f"prompt's K/V in all {off['kv'][0]['k'].shape[0]} layers; hit "
+        f"tokens "
+        f"LS {ls_hit} BE {sum(on['hits'][BE])} = prefill tokens saved; LS "
+        f"TTFT p50 of the 7 later requests: hit {_p50(on['ttft']):.1f} ms, "
+        f"cold {_p50(off['ttft']):.1f} ms")
+
+    # planted fault: one shared K page of the tree zeroed in every layer
+    # once the first LS request has donated its prompt pages; the later
+    # hits must then write other K/V at their suffix rows
+    def zero_page(eng, first):
+        rt = eng.tenants[LS]
+        page = int(rt.kv.page_table[first[LS].slot, 10])
+        require(rt.kv.page_ref[page] >= 1 and any(
+            nd.page == page for nd in rt.prefix._nodes()),
+            f"(a) page {page} is not a tree page")
+        rt.cache["layers"]["s0"]["k"][:, page].zero_()
+    eng = _hier_engine(params, ls_only=True, prefix_cache=True)
+    kv = _capture_kv(eng, LS)
+    reqs, _ = _serve_warm(torch, eng, {LS: prompts[LS]},
+                          after_warm=zero_page)
+    planted = _toks(reqs)[LS]
+    changed = sum(a != b for a, b in zip(planted[1:], on["toks"][LS][1:]))
+    # the hits' own rows: the suffix from the prefix's 48 pages on
+    moved = [_first_kv_diff(a, b, first_page=768 // PAGE)
+             for a, b in zip(on["kv"][1:], _kv_list(kv, reqs[LS])[1:])]
+    require(all(d is not None for d in moved),
+            f"(a) planted fault: a zeroed shared K page left a later hit's "
+            f"suffix K/V unchanged: {moved}")
+    log(f"  (a) planted fault (tree page's K zeroed in every layer): every "
+        f"later hit's suffix K/V differ from the clean run, first at "
+        f"(layer, leaf, position) {sorted(set(moved))}; "
+        f"{changed} of 7 hits' tokens differ")
+    del eng, kv
+    for r in runs.values():
+        del r["kv"]
+
+    # the prefix at 800 tokens, not a multiple of the 256-token chunk:
+    # reported, not required
+    caps, toks800 = {}, {}
+    for name, kw in (("off", {}), ("on", {"prefix_cache": True})):
+        eng = _hier_engine(params, ls_only=True, **kw)
+        kv = _capture_kv(eng, LS)
+        reqs, _ = _serve_warm(torch, eng, {LS: unaligned})
+        toks800[name] = _toks(reqs)[LS]
+        caps[name] = _kv_list(kv, reqs[LS])
+        hits800 = sum(r.hit_tokens for r in reqs[LS])
+        del eng
+    div = _first_divergence(toks800["off"], toks800["on"])
+    kv_diff = dict(enumerate(_first_kv_diff(a, b)
+                             for a, b in zip(caps["off"], caps["on"])))
+    line = (f"  (a) 800-token prefix (hit tokens {hits800}): tokens "
+            f"bit-equal on/off: {div is None}; prompt K/V bit-equal: "
+            f"{not any(kv_diff.values())}")
+    if div is not None:
+        line += f"; first diverging request {div[0]} at token {div[1]}"
+    if any(kv_diff.values()):
+        i, d = next((k, v) for k, v in kv_diff.items() if v)
+        line += (f"; first differing op output: request {i}'s layer "
+                 f"{d[0]} {d[1]}-projection at position {d[2]}")
+    log(line)
+    del caps, kv
+
+    # -- (b) growth and the host swap tier ---------------------------------
+    extent = {t: sum(-(-(len(p) + HIER_MAX_NEW) // PAGE) for p in ps)
+              for t, ps in prompts.items()}
+    kv_pages = min(extent.values()) // 2
+    log(f"  (b) kv_pages {kv_pages} per tenant (full extent of the batch: "
+        f"LS {extent[LS]}, BE {extent[BE]} pages)")
+    swapped = {}
+    for dtype in ("fp16", "int8"):
+        eng = _hier_engine(params, grow_pages=True, swap=True,
+                           cold_dtype=dtype, kv_pages=kv_pages)
+        spent = _timed_host(eng)
+        reqs = {t: [eng.submit(t, p, max_new=HIER_MAX_NEW) for p in ps]
+                for t, ps in prompts.items()}
+        t0 = time.perf_counter()
+        _drive_idle(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = eng.metrics()
+        sw = {t: m[t]["swap"] for t in prompts}
+        for t, rs in reqs.items():
+            for r in rs:
+                require(not r.failed and len(r.output) == HIER_MAX_NEW,
+                        f"(b {dtype}) request {r.rid} ({t}): {r.output}")
+        toks = _toks(reqs)
+        equal = sum(a == b for t in prompts
+                    for a, b in zip(toks[t], off["toks"][t]))
+        host = {t: s["host"] for t, s in sw.items()}
+        log(f"  (b) {dtype}: {len(eng.events)} quanta in {wall:.2f}s; "
+            + "; ".join(f"{t} preemptions {s['preemptions']} swap_outs "
+                        f"{s['swap_outs']} swap_ins {s['swap_ins']} "
+                        f"grow_stalls {s['grow_stalls']}"
+                        for t, s in sw.items())
+            + f"; {equal} of 16 requests' tokens equal the unpressured run")
+        log(f"  (b) {dtype} host tier: to host "
+            f"{sum(h['bytes_to_host'] for h in host.values())} B, to device "
+            f"{sum(h['bytes_to_device'] for h in host.values())} B, pcie_s "
+            f"{sum(h['pcie_s'] for h in host.values()):.6f}; host ms a put "
+            f"{sum(spent['put']) / max(len(spent['put']), 1):.3f} "
+            f"({len(spent['put'])} puts), a get "
+            f"{sum(spent['get']) / max(len(spent['get']), 1):.3f} "
+            f"({len(spent['get'])} gets)")
+        swapped[dtype] = {"toks": toks, "sw": sw}
+        del eng
+    fp16 = swapped["fp16"]
+    require(sum(s["swap_outs"] for s in fp16["sw"].values()) > 0
+            and sum(s["swap_ins"] for s in fp16["sw"].values()) > 0,
+            f"(b) fp16: no swap out/in {fp16['sw']}")
+    for t in prompts:
+        div = _first_divergence(off["toks"][t], fp16["toks"][t])
+        require(div is None, f"(b) fp16 {t} tokens differ from the "
+                f"unpressured run: request {div}")
+    log("  (b) fp16 tokens bit-equal to the unpressured run (16 requests)")
+
+    # -- (c) a seeded fault storm over (b)'s fp16 run ----------------------
+    # fault_budget: the ladder's first rung would move a bf16 tenant onto
+    # the torch-op attention core, whose roundings differ from the
+    # kernels'; (c) holds the recovery paths, the f32 run below the rung
+    clock = {"t": 0.0}
+    plane = FaultPlane.storm(horizon=STORM_HORIZON, seed=seed,
+                             rates=STORM_RATES, duration=STORM_DURATION)
+    eng = _hier_engine(params, grow_pages=True, swap=True, cold_dtype="fp16",
+                       kv_pages=kv_pages, faults=plane, fault_budget=10 ** 6,
+                       now_fn=lambda: clock["t"])
+    reqs = {t: [eng.submit(t, p, max_new=HIER_MAX_NEW) for p in ps]
+            for t, ps in prompts.items()}
+    t0 = time.perf_counter()
+    _drive_idle(eng, clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa = eng.metrics()["faults"]
+    corrupt = sum(rt.host.corruptions for rt in eng.tenants.values())
+    toks = _toks(reqs)
+    surv = sum(x is not None for t in prompts for x in toks[t])
+    log(f"  (c) storm: {int(clock['t'])} steps, {len(eng.events)} quanta "
+        f"in {wall:.2f}s; injected {fa['injected']}; recovered "
+        f"{fa['recovered']}; CRC catches {corrupt}; shed {fa['shed']}; "
+        f"swap retries {fa['swap_retries']}; grow deadlocks "
+        f"{fa['grow_deadlocks']}; {surv} of 16 requests survive")
+    require(sum(fa["injected"].values()) > 0
+            and sum(fa["recovered"].values()) > 0 and corrupt >= 1,
+            f"(c) storm not exercised: injected {fa['injected']}, "
+            f"recovered {fa['recovered']}, CRC catches {corrupt}")
+    require(all(x is not None for x in toks[LS])
+            and eng.tenants[LS].shed == 0, "(c) an LS request was shed")
+    for t in prompts:
+        for i, (x, y) in enumerate(zip(toks[t], fp16["toks"][t])):
+            require(x is None or x == y, f"(c) {t} request {i}: surviving "
+                    "tokens differ from (b)'s fp16 run")
+    log("  (c) every surviving request bit-equal to (b)'s fp16 run; LS "
+        "never shed")
+    del eng
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    del params
+    torch.cuda.empty_cache()
+    log(f"  (a)-(c) launches {counts}; prefill routes "
+        f"{routes['prefill_attention_paged']}")
+    require(counts["decode_attention_paged"] > 0
+            and counts["prefill_attention_paged"] > 0,
+            f"paged kernels not launched: {counts}")
+    require(routes["prefill_attention_paged"] == {
+        "wgmma": counts["prefill_attention_paged"], "simt": 0},
+        f"hierarchy prefill routes {routes['prefill_attention_paged']}")
+
+    # -- the ladder's flash_to_dense rung, phase 6b's f32 configuration ----
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("qwen3-1.7b").replace(activation_dtype="float32")
+    lens = np.random.default_rng(seed + 13).integers(128, 513, 4)
+    f32 = tf.init_params(cfg, seed, "cuda", dtype=torch.float32)
+    out = {}
+    for mode in ("torch-op", "rung"):
+        eng = ServingEngine(max_seq=1024, paged=True, page_size=PAGE,
+                            use_flash=mode == "rung", chunk_size=256,
+                            slots_ls=4, fault_budget=1, torch_device="cuda")
+        rt = eng.add_tenant(TenantSpec(LS, "LS"), cfg, params=f32)
+        if mode == "rung":
+            eng.backend._record_recovery(rt, "synthetic")
+            require(not rt.flash and rt.degraded == ["flash_to_dense"],
+                    f"rung not taken: {rt.degraded}")
+        p = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                 (len(lens), 512))
+        before = ops.launch_counts()
+        reqs = [eng.submit(LS, p[i, :L], max_new=8)
+                for i, L in enumerate(lens)]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        out[mode] = ([list(r.output) for r in reqs],
+                     {k: after[k] - before[k] for k in after},
+                     eng.metrics().get("faults", {}).get("degraded_tenants"))
+        del eng
+    require(out["rung"][0] == out["torch-op"][0],
+            "flash_to_dense: tokens differ from the torch-op engine")
+    require(not any(out["rung"][1].values()),
+            f"flash_to_dense: kernels still launched {out['rung'][1]}")
+    log(f"  flash_to_dense (f32, TF32 off, prompts {list(map(int, lens))}):"
+        f" rungs taken {out['rung'][2]}; tokens equal the torch-op "
+        "engine's; no kernel launched after the rung")
+    del f32
+    torch.cuda.empty_cache()
+    log(f"  phase 10 wall {time.perf_counter() - t_phase:.1f}s")
+    return counts, routes
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=9,
+    ap.add_argument("--until", type=int, default=10,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all nine ran)")
+                         "lines are printed only when all ten ran)")
+    ap.add_argument("--from", dest="start", type=int, default=4,
+                    help="skip phases 4 to this one's predecessor "
+                         "(debugging; no result lines)")
     args = ap.parse_args()
 
     import torch
@@ -1933,6 +2393,13 @@ def main():
     kres = kernel_phase(torch, args.seed)
 
     if args.until <= 3:
+        return 1
+    if args.start > 4:
+        if args.start <= 10:
+            log("== phase 10: KV hierarchy and fault plane, LS qwen3-1.7b "
+                "+ BE stablelm-1.6b, paged")
+            hierarchy_phase(torch, args.seed)
+        log(f"== phases 4-{args.start - 1} skipped: no result lines")
         return 1
     log("== phase 4: qwen3-1.7b full width, paged prefill + decode")
     model_phase(torch, args.seed)
@@ -1977,6 +2444,16 @@ def main():
     for name in ("decode_attention_paged", "prefill_attention_paged"):
         kres[name]["tidal_launches"] = {
             mode: c[name] for mode, c in tidal_counts.items()}
+
+    if args.until <= 9:
+        return 1
+    log("== phase 10: KV hierarchy and fault plane, LS qwen3-1.7b + BE "
+        "stablelm-1.6b, paged (prefix cache, growth and swap, storm)")
+    hier_counts, hier_routes = hierarchy_phase(torch, args.seed)
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        kres[name]["hierarchy_launches"] = hier_counts[name]
+    kres["prefill_attention_paged"]["hierarchy_routes"] = hier_routes[
+        "prefill_attention_paged"]
 
     launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
                                                 "prefill_attention_paged")},

@@ -1,11 +1,14 @@
 """SGDRC's control plane on the host: tenancy, elastic compute multiplexing
 (``compute``), the analytical cost model and the contention simulator the
 offline controller searches with (``costmodel``, ``simulator``), the
-offline plan search and the online tidal controller (``controller``), and
-the colored arena of ``core.coloring``. These modules are copies of the
-reference's (numpy and the standard library only). The interconnect model
-and the PCIe scheduler (``interconnect``, ``pcie``) are not ported yet."""
-from . import coloring, compute, controller, costmodel, simulator, tenancy
+offline plan search and the online tidal controller (``controller``), the
+PCIe bus model and its completely fair scheduler (``pcie``, which the host
+KV tier logs its copies against), and the colored arena of
+``core.coloring``. These modules are copies of the reference's (numpy and
+the standard library only). The interconnect model (``interconnect``) is
+not ported yet: it comes with the disaggregated engine."""
+from . import (coloring, compute, controller, costmodel, pcie, simulator,
+               tenancy)
 from .compute import ComputePolicy, ElasticMeshPartitioner, LoadSignal
 from .controller import ResourcePlan, grid_search, memory_bound_ops
 from .simulator import (DeviceSpec, GPU_DEVICES, GPUSimulator, Kernel,

@@ -52,11 +52,42 @@ the window's LS TBT p99. ``transitions`` records every adopted plan with
 the pages migrated. The resplit is placement bookkeeping: device pools and
 page tables never move, so a mid-run plan change never alters tokens.
 
+**KV memory hierarchy** (``paged=True`` only). ``prefix_cache=True`` gives
+each tenant a :class:`~.prefix_cache.PrefixCache`: a radix tree over prompt
+token ids whose nodes own ref-counted KV pages. Admission maps the cached
+prefix pages copy-on-write into the slot's page table and prefills only the
+uncached suffix (the paged chunked-prefill kernel starts at ``pos`` = the
+hit length, over the shared pages); a chunk or decode write into a shared
+page forks it first. Committed prompt pages are donated to the tree at the
+first token, the rest at eviction; zero-ref leaves are LRU-evicted under
+pool pressure, and shared pages a live page table references are pinned
+out of tidal resplits. ``grow_pages=True`` admits on the prompt's pages
+only and maps each decode page at its boundary crossing; on pool
+exhaustion the youngest younger request is preempted (restarted from
+scratch) or, with ``swap=True``, its page group is copied to a per-tenant
+:class:`~.swap.HostSwapPool` (``cold_dtype`` "fp16": the pool's own bits;
+"int8": per-page abs-max) and faulted back, ``swap_quantum_pages`` a
+quantum, when it re-admits. With a prefix cache the host pool is also the
+tree's cold tier: evicted leaves' pages survive there and re-adopt before
+a matching admission.
+
+**Fault plane** (``faults=``, a :class:`~.faults.FaultPlane`): seeded
+injections at the host tier (write and read windows, page corruption
+caught by a CRC32), the allocator (``alloc_fail`` defers admission and
+growth), and the control tick (``ctl_missed_tick``, ``ctl_stale_signal``).
+``fault_recovery`` switches the recovery paths on: swap-in retry with
+backoff, preempt-restart on a write fault or a corrupt page, deadline
+shedding (``submit(deadline=)``), grow-deadlock shedding, and the
+controller watchdog that snaps to a safe plan when LS starves. Every
+recovery is charged to the tenant; each ``fault_budget`` points take the
+next rung of its ladder: ``flash_to_dense`` (its forwards rebuilt on the
+torch-op attention core), ``swap_to_preempt``, ``grow_to_full``.
+
 PyTorch runs eagerly, so there is no compile step; pools and dense caches
-are updated in place. Not ported yet (``NotImplementedError``): the prefix
-cache, page growth, host swap, fault injection (with the controller
-watchdog), the simulator backend and the disaggregation hooks; and the
-MLA, MoE, encoder and vision model families (``tf.check_supported``).
+are updated in place. Not ported yet (``NotImplementedError``): the
+simulator backend; the disaggregation seams (``chunk_hook``,
+``migrate_hook``) stay ``None``; and the MLA, MoE, encoder and vision
+model families (``tf.check_supported``).
 """
 from __future__ import annotations
 
@@ -77,9 +108,12 @@ from ..core.tenancy import TenantSpec
 from ..models import transformer as tf
 from ..models.common import dt
 from .. import obs
+from .faults import ColdPageCorrupt, FaultPlane, HostTierFault, safe_floor
 from .kv_cache import PagedKVCache, kv_bytes_per_token
+from .prefix_cache import PrefixCache
 from .scheduler import (Phase, QuantumReport, TokenBudgetScheduler,
                         split_tiles)
+from .swap import HostSwapPool
 
 
 def resolve_device(torch_device) -> torch.device:
@@ -106,11 +140,31 @@ class Request:
     output: Optional[list] = None
     slot: Optional[int] = None
     failed: bool = False           # rejected (e.g. can never fit KV pages)
-    rejected: bool = False         # submit backpressure / oversized prompt
+    hit_tokens: int = 0            # prefix-cache hit length at admission
     # phase state machine (serving.scheduler); ``prefill_pos`` is the next
-    # prompt position to compute
+    # prompt position to compute (a prefix-cache hit starts at its uncached
+    # suffix)
     phase: Phase = Phase.WAITING
     prefill_pos: int = 0
+    # KV-hierarchy state: a preempted request restarts from scratch; a
+    # swapped-out decode keeps its host page keys plus the decode state to
+    # resume from once the pages fault back in (SWAPPED -> SWAPPING)
+    swap_keys: Optional[list] = None   # host-tier keys, logical page order
+    swap_cursor: int = 0               # next page to fault in
+    resume_pos: int = 0                # rt.pos at swap-out
+    resume_tok: int = 0                # rt.last_tok at swap-out
+    t_evicted: Optional[float] = None  # set at preempt/swap-out, cleared at
+    preempts: int = 0                  # the resume token (warm-restart gap)
+    # fault-plane state: deadline is absolute (clock units); rejected marks
+    # submit backpressure; shed marks a request dropped by a recovery path
+    # (deadline, grow deadlock); swap_retries / swap_backoff drive the
+    # bounded retry with backoff of swap-in faults (backoff = engine step
+    # index before which no retry is attempted)
+    deadline: Optional[float] = None
+    rejected: bool = False
+    shed: bool = False
+    swap_retries: int = 0
+    swap_backoff: int = 0
 
     @property
     def latency(self):
@@ -137,13 +191,33 @@ class _TenantRT:
     active: List[Optional[Request]] = field(default_factory=list)
     alloc_name: Optional[str] = None        # dense-mode arena group
     kv: Optional[PagedKVCache] = None       # page-table state (paged mode)
-    prefix = None                           # prefix cache: not ported yet
+    prefix: Optional[PrefixCache] = None    # radix-tree page sharing
     peak_active: int = 0                    # max concurrent decode slots seen
     prefill_tokens: int = 0                 # prompt tokens admitted
     prefill_computed: int = 0               # prompt tokens actually prefilled
     tbt_gaps: List[float] = field(default_factory=list)  # inter-token gaps
+    # KV-hierarchy state (swap mode)
+    host: Optional[HostSwapPool] = None     # host tier for swapped pages
+    preemptions: int = 0                    # requests restarted from scratch
+    swap_outs: int = 0                      # decode page groups pushed to host
+    swap_ins: int = 0                       # page groups faulted back
+    grow_stalls: int = 0                    # decode quanta stalled on growth
     chunk_aborts: int = 0                   # sub-chunk prefill preemptions
+    resume_gaps: List[float] = field(default_factory=list)  # evict->token
+    # fault-plane state: counters for the recovery paths plus the
+    # per-tenant degradation ladder — every recovery costs one point of
+    # fault_score; each fault_budget points takes the next rung
     rejected: int = 0                       # submit backpressure rejections
+    shed: int = 0                           # requests load-shed by recovery
+    grow_deadlocks: int = 0                 # growth exhausted all victims
+    deadlock_streak: int = 0                # consecutive victimless stalls
+    swap_retries: int = 0                   # swap-in fault retries
+    fault_recoveries: Dict[str, int] = field(default_factory=dict)
+    fault_score: int = 0
+    degraded: List[str] = field(default_factory=list)  # ladder rungs taken
+    flash: bool = False                     # current attention path
+    swap_degraded: bool = False             # rung: swap-out -> preempt
+    grow_degraded: bool = False             # rung: growth -> full extent
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.active)
@@ -182,9 +256,13 @@ class _TorchBackend:
         self.engine = engine
 
     def _build_fns(self, rt: _TenantRT):
-        """The tenant's batched decode and prefill-chunk forwards."""
+        """(Re)build the tenant's batched decode and prefill-chunk forwards.
+        The attention path is taken from ``rt.flash`` by value, so the
+        degradation ladder's flash->dense rung can rebuild one live tenant
+        mid-run without touching any other tenant or the engine-wide
+        default."""
         cfg = rt.cfg
-        flash = self.engine.use_flash
+        flash = rt.flash
 
         def _decode(p, tok, cache, pos, pt=None):
             return tf.decode_step(p, cfg, tok, cache, pos,
@@ -205,6 +283,7 @@ class _TorchBackend:
 
     def add_tenant(self, rt: _TenantRT):
         eng = self.engine
+        rt.flash = eng.use_flash
         self._build_fns(rt)
         if eng.paged:
             chans = cap = None
@@ -219,8 +298,41 @@ class _TorchBackend:
                                  eng.page_size, n_pages=eng.kv_pages,
                                  arena=eng.arena, channels=chans,
                                  name=rt.spec.name, cap_channels=cap,
+                                 sharing=eng.prefix_cache,
                                  device=eng.torch_device)
+            if eng.faults is not None:
+                # allocation faults defer admission/growth at the call
+                # sites, never inside can_admit_pages (kv_cache)
+                rt.kv.fault_hook = (
+                    lambda _rt=rt: eng.faults.active(
+                        "alloc_fail", eng.clock(),
+                        target=_rt.spec.name) is not None)
+            if eng.prefix_cache:
+                rt.prefix = PrefixCache(eng.page_size, rt.kv)
             rt.cache = rt.kv.init_pools()
+            if eng.swap:
+                rt.host = HostSwapPool(eng.cold_dtype,
+                                       tenant=rt.spec.name,
+                                       priority=rt.spec.priority,
+                                       nice=rt.spec.nice,
+                                       faults=eng.faults,
+                                       verify=eng.fault_recovery)
+                if eng.tracer.level >= 0:
+                    rt.host.tracer = eng.tracer
+                    rt.host.trace_prefix = eng._trace_prefix
+                if rt.prefix is not None:
+                    # cold prefix tier: evicted leaves' pages survive on the
+                    # host and fault back in before a matching admission
+                    def _store(key, page, _rt=rt):
+                        _rt.host.drop(key)   # re-evicted after a re-donate
+                        _rt.host.put(_rt.cache, key, page, t=eng.clock())
+
+                    def _load(key, page, _rt=rt):
+                        _rt.host.get(_rt.cache, key, page, t=eng.clock())
+
+                    rt.prefix.cold_store = _store
+                    rt.prefix.cold_loader = _load
+                    rt.prefix.cold_has = lambda key, _rt=rt: key in _rt.host
         else:
             rt.cache = tf.init_cache(rt.cfg, rt.n_slots, eng.max_seq,
                                      device=eng.torch_device)
@@ -242,10 +354,336 @@ class _TorchBackend:
         rt.done.append(req)
         eng._trace_done(rt, req)
         rt.active[slot] = None
+        pos = int(rt.pos[slot])
         rt.pos[slot] = 0
         rt.last_tok[slot] = 0
-        if rt.kv is not None:
+        if rt.prefix is not None:
+            # KV token stream: prompt, then the fed-back outputs (the last
+            # output token's KV was never written) — donate full pages to
+            # the radix tree, then release the slot's private pages
+            stream = np.concatenate(
+                [req.tokens,
+                 np.asarray(req.output[:max(pos - len(req.tokens), 0)],
+                            np.int32)])
+            rt.prefix.release_slot(slot, stream, pos)
+        elif rt.kv is not None:
             rt.kv.free_slot(slot)
+
+    # -- KV hierarchy: growth / preemption / swap ----------------------
+    def _drop_slot_pages(self, rt: _TenantRT, slot: int):
+        """Free a slot's pages *without* donating to the prefix tree (the
+        preempt/swap-out path: the content either restarts from scratch or
+        already lives on the host)."""
+        if rt.prefix is not None:
+            rt.prefix.release_slot(slot, None, 0)
+        elif rt.kv is not None:
+            rt.kv.free_slot(slot)
+
+    # -- fault plane: recovery bookkeeping / degradation ladder ---------
+    def _record_recovery(self, rt: _TenantRT, kind: str):
+        """Charge a recovery action against the tenant's fault budget.
+        Every ``fault_budget`` points the degradation ladder takes its next
+        rung (the faults module docstring): flash->dense attention (the
+        CUDA kernels -> the torch-op core), swap-out->preempt-restart,
+        page-growth->full-extent admission — each trades peak efficiency
+        for fewer moving parts under a storm."""
+        rt.fault_recoveries[kind] = rt.fault_recoveries.get(kind, 0) + 1
+        rt.fault_score += 1
+        eng = self.engine
+        eng.tracer.instant("recovery", kind, eng.clock(),
+                           f"{eng._trace_prefix}recovery",
+                           tenant=rt.spec.name, score=rt.fault_score)
+        while rt.fault_score >= eng.fault_budget * (len(rt.degraded) + 1):
+            if rt.flash:
+                rt.flash = False
+                self._build_fns(rt)
+                rt.degraded.append("flash_to_dense")
+            elif eng.swap and not rt.swap_degraded:
+                rt.swap_degraded = True
+                rt.degraded.append("swap_to_preempt")
+            elif eng.grow_pages and not rt.grow_degraded:
+                rt.grow_degraded = True
+                rt.degraded.append("grow_to_full")
+            else:
+                break
+
+    def _shed(self, rt: _TenantRT, req: Request, reason: str):
+        """Load-shed a request (deadline expiry, grow deadlock): device
+        pages freed without donation, host-tier pages dropped, and the
+        request finishes failed+shed — recovery trades one BE request for
+        the batch's forward progress instead of stalling everyone."""
+        eng = self.engine
+        eng.tracer.instant("recovery", reason, eng.clock(),
+                           f"{eng._trace_prefix}recovery",
+                           tenant=rt.spec.name, rid=req.rid)
+        if req.slot is not None:
+            s = req.slot
+            eng._trace_leave(rt, req, s, req.phase.name.lower(), reason)
+            self._drop_slot_pages(rt, s)
+            rt.active[s] = None
+            rt.pos[s] = 0
+            rt.last_tok[s] = 0
+            req.slot = None
+        elif req in rt.queue:
+            rt.queue.remove(req)
+        if req.swap_keys and rt.host is not None:
+            for k in req.swap_keys:
+                rt.host.drop(k)
+        req.swap_keys = None
+        req.failed = True
+        req.shed = True
+        req.phase = Phase.FINISHED
+        req.t_done = self.engine.clock()
+        if req.output is None:
+            req.output = []
+        rt.shed += 1
+        rt.done.append(req)
+        eng._trace_done(rt, req)
+
+    def _youngest_victim(self, rt: _TenantRT, exclude: int,
+                         younger_than: Optional[Request] = None
+                         ) -> Optional[Request]:
+        """Preemption victim under pool exhaustion: the youngest (latest
+        submit) other active request in this tenant's pool — least sunk
+        work, and it re-queues behind everything it raced. The growing slot
+        itself is excluded (self-preemption would livelock), and with
+        ``younger_than`` only requests strictly younger than the grower
+        qualify: under preempt-restart two peers stealing each other's
+        pages would otherwise reset each other's output forever —
+        seniority makes the eldest's progress monotone, which is what
+        guarantees the pool eventually drains."""
+        age = (lambda r: (r.t_submit, r.rid))
+        cands = [r for s, r in enumerate(rt.active)
+                 if r is not None and s != exclude
+                 and r.phase in (Phase.PREFILLING, Phase.DECODING)
+                 and (younger_than is None or age(r) > age(younger_than))]
+        if not cands:
+            return None
+        return max(cands, key=age)
+
+    def _preempt(self, rt: _TenantRT, req: Request):
+        """Restart a victim from scratch (swap off, or a mid-prefill victim
+        with no resumable decode state): pages freed without donation, phase
+        back to WAITING, re-queued. Deterministic greedy decode makes the
+        restart emit identical tokens."""
+        s = req.slot
+        self.engine._trace_leave(rt, req, s, req.phase.name.lower(),
+                                 "preempt")
+        self._drop_slot_pages(rt, s)
+        rt.active[s] = None
+        rt.pos[s] = 0
+        rt.last_tok[s] = 0
+        req.t_evicted = self.engine.clock()
+        req.phase = Phase.WAITING
+        req.slot = None
+        req.prefill_pos = 0
+        req.output = None
+        req.t_first = req.t_last = req.t_admit = None
+        req.hit_tokens = 0
+        req.swap_keys = None
+        req.preempts += 1
+        rt.preemptions += 1
+        rt.queue.append(req)
+
+    def _swap_out(self, rt: _TenantRT, req: Request) -> int:
+        """Move a decoding victim's whole page group to the host tier:
+        page contents copied in logical order (quantized per ``cold_dtype``),
+        decode resume state saved, device pages freed without donation, the
+        request re-queued as SWAPPED. Returns pages moved."""
+        eng = self.engine
+        s, kv = req.slot, rt.kv
+        n = kv.mapped_count(s)
+        now = eng.clock()
+        keys = []
+        try:
+            for j in range(n):
+                key = ("req", req.rid, j)
+                rt.host.drop(key)
+                rt.host.put(rt.cache, key, int(kv.page_table[s, j]), t=now)
+                keys.append(key)
+        except HostTierFault:
+            # mid-group write fault: the host must never hold a partial
+            # page group — drop what landed, let the caller pick a fallback
+            for k in keys:
+                rt.host.drop(k)
+            raise
+        req.swap_keys = keys
+        req.swap_cursor = 0
+        req.resume_pos = int(rt.pos[s])
+        req.resume_tok = int(rt.last_tok[s])
+        if req.t_evicted is not None:
+            # re-evicted before decoding a token after its last swap-in:
+            # close the pending warm-restart gap here so every completed
+            # swap-in records exactly one resume gap
+            rt.resume_gaps.append(now - req.t_evicted)
+        req.t_evicted = now
+        eng._trace_leave(rt, req, s, req.phase.name.lower(), "swap_out")
+        req.phase = Phase.SWAPPED
+        req.slot = None
+        self._drop_slot_pages(rt, s)
+        rt.active[s] = None
+        rt.pos[s] = 0
+        rt.last_tok[s] = 0
+        rt.swap_outs += 1
+        rt.queue.append(req)
+        return n
+
+    def _ensure_growth(self, rt: _TenantRT, slots: List[int]):
+        """Growth pre-pass before the decode batch: map the page each
+        decode write needs (growth-mode admission only reserved the
+        prompt's pages). On pool exhaustion: free cold prefix leaves first,
+        then swap out — or, with swap off / for a mid-prefill victim,
+        preempt — the youngest other active request; a slot that still
+        can't grow stalls out of this quantum's decode batch. Under the
+        fault plane: an ``alloc_fail`` window defers every growth (no
+        eviction), a swap write fault downgrades that victim to a preempt,
+        and a *persistent* no-victim deadlock (``deadlock_patience``
+        quanta) sheds the youngest BE request rather than spinning.
+        Victims must be strictly younger than their grower, so the eldest
+        request's progress is monotone — the liveness argument for the
+        preempt-restart path. Returns (ready slots, pages swapped out)."""
+        eng = self.engine
+        kv = rt.kv
+        ready, out_pages = [], 0
+        if kv.alloc_fault():
+            # allocator fault window: defer every growth this quantum —
+            # nothing is evicted, the growers stall, and slots that already
+            # own their next page decode normally
+            for s in slots:
+                req = rt.active[s]
+                if req is None or req.phase is not Phase.DECODING:
+                    continue
+                if kv.needs_grow(s, int(rt.pos[s])):
+                    rt.grow_stalls += 1
+                else:
+                    ready.append(s)
+            return ready, 0
+        for s in slots:
+            req = rt.active[s]
+            if req is None or req.phase is not Phase.DECODING:
+                continue          # taken as a victim by an earlier grower
+            if not kv.needs_grow(s, int(rt.pos[s])):
+                ready.append(s)
+                continue
+            grown = False
+            while True:
+                if kv.can_admit_pages(1):
+                    kv.grow_slot(s)
+                    grown = True
+                    rt.deadlock_streak = 0
+                    break
+                if rt.prefix is not None and rt.prefix.evict_until(1):
+                    continue
+                victim = self._youngest_victim(rt, exclude=s,
+                                               younger_than=req)
+                if victim is None:
+                    if self._youngest_victim(rt, exclude=s) is not None:
+                        # only elders are killable: stall — seniority says
+                        # the eldest grower wins, and its monotone progress
+                        # is what drains the pool for this slot later
+                        break
+                    # every other slot is SWAPPING/unkillable; one
+                    # victimless quantum is usually just a swap-in
+                    # mid-flight, so only a *persistent* streak
+                    # (deadlock_patience quanta) counts as a deadlock; then
+                    # BE under recovery sheds the youngest active request
+                    # of any phase — including the grower itself — so the
+                    # pool drains. LS stalls and surfaces via the counter
+                    # instead of losing work.
+                    rt.deadlock_streak += 1
+                    if rt.deadlock_streak >= eng.deadlock_patience:
+                        rt.deadlock_streak = 0
+                        rt.grow_deadlocks += 1
+                        if not rt.spec.is_ls and eng.fault_recovery:
+                            cands = [r for r in rt.active if r is not None]
+                            if cands:
+                                shed = max(cands,
+                                           key=lambda r: (r.t_submit, r.rid))
+                                self._shed(rt, shed, "grow_deadlock")
+                                if shed is not req:
+                                    continue
+                    break
+                if (rt.host is not None and not rt.swap_degraded
+                        and victim.phase is Phase.DECODING):
+                    try:
+                        out_pages += self._swap_out(rt, victim)
+                    except HostTierFault:
+                        # host write window: fall back one rung for this
+                        # victim — preempt-restart instead of stalling
+                        if eng.fault_recovery:
+                            self._record_recovery(rt, "swap_write")
+                            self._preempt(rt, victim)
+                        else:
+                            break
+                else:
+                    self._preempt(rt, victim)
+            if grown:
+                ready.append(s)
+            elif rt.active[s] is not None:
+                rt.grow_stalls += 1
+        return ([s for s in ready if rt.active[s] is not None
+                 and rt.active[s].phase is Phase.DECODING], out_pages)
+
+    def _swap_progress(self, rt: _TenantRT) -> int:
+        """Fault host pages back into SWAPPING slots, up to the engine's
+        ``swap_quantum_pages`` per quantum — the SWAPPING phase is paced
+        across quanta so decode keeps ticking next to a fault storm. A
+        slot whose page group completes resumes DECODING where it left
+        off (pos + last token restored)."""
+        eng = self.engine
+        budget = eng.swap_quantum_pages
+        pages = 0
+        for s in eng.scheduler.swap_slots(rt):
+            if budget <= 0:
+                break
+            req = rt.active[s]
+            if req.swap_backoff > eng._step_idx:
+                continue          # backing off a faulted swap-in
+            faulted = False
+            while budget > 0 and req.swap_cursor < len(req.swap_keys):
+                dst = int(rt.kv.page_table[s, req.swap_cursor])
+                try:
+                    rt.host.get(rt.cache, req.swap_keys[req.swap_cursor],
+                                dst, t=eng.clock())
+                except HostTierFault as e:
+                    faulted = True
+                    if not eng.fault_recovery:
+                        break     # naive baseline: blind retry next quantum
+                    req.swap_retries += 1
+                    rt.swap_retries += 1
+                    if (isinstance(e, ColdPageCorrupt)
+                            or req.swap_retries > eng.swap_retry_limit):
+                        # unrecoverable (corrupt page / retries exhausted):
+                        # abandon the host copy and preempt-restart — the
+                        # deterministic replay re-emits identical tokens
+                        for k in req.swap_keys:
+                            rt.host.drop(k)
+                        self._record_recovery(rt, "swap_read")
+                        self._preempt(rt, req)
+                        req.swap_retries = 0
+                        req.swap_backoff = 0
+                    else:
+                        # bounded retry with exponential backoff, in engine
+                        # steps — the transient window clears while other
+                        # slots keep their swap-in budget
+                        req.swap_backoff = eng._step_idx + (
+                            1 << min(req.swap_retries, 4))
+                    break
+                req.swap_cursor += 1
+                budget -= 1
+                pages += 1
+            if faulted:
+                continue
+            if req.swap_cursor >= len(req.swap_keys):
+                rt.pos[s] = req.resume_pos
+                rt.last_tok[s] = req.resume_tok
+                eng._trace_phase(rt, req, "swapping", "decoding")
+                req.phase = Phase.DECODING
+                req.swap_keys = None
+                req.swap_retries = 0
+                req.swap_backoff = 0
+                rt.swap_ins += 1
+        return pages
 
     def _write_sentinel(self, rt: _TenantRT) -> int:
         """A cache position no batched call may write: dense caches drop any
@@ -259,17 +697,24 @@ class _TorchBackend:
 
     def _seed_first_token(self, rt: _TenantRT, req: Request, first_tok: int):
         """Prefill-completion epilogue: the request enters DECODING seeded
-        with its first output token; degenerate (max_new<=1) requests finish
+        with its first output token; the committed full prompt pages are
+        donated to the prefix tree; degenerate (max_new<=1) requests finish
         immediately."""
         eng = self.engine
         s = req.slot
+        L = len(req.tokens)
         now = eng.clock()
         req.t_first = req.t_last = now
+        if req.t_evicted is not None:       # preempt-restart warm TTFT
+            rt.resume_gaps.append(now - req.t_evicted)
+            req.t_evicted = None
         eng._trace_phase(rt, req, req.phase.name.lower(), "decoding")
         req.phase = Phase.DECODING
         req.output = [int(first_tok)]
-        rt.pos[s] = len(req.tokens)
+        rt.pos[s] = L
         rt.last_tok[s] = req.output[0]
+        if rt.prefix is not None:
+            rt.prefix.donate(s, req.tokens, L)
         if len(req.output) >= max(req.max_new, 1) or rt.pos[s] >= eng.max_seq:
             self._finish(rt, s)
 
@@ -304,8 +749,9 @@ class _TorchBackend:
         chunk order, each wave batches equal-length chunks into one
         cached-context ``prefill_step`` call across the slot pool (rows not
         in the group sit at the write sentinel — writes drop, logits
-        ignored); a chunk that reaches the end of its prompt seeds the
-        request's first output token. Returns tokens computed.
+        ignored). A chunk write landing in a shared page forks it
+        copy-on-write first; a chunk that reaches the end of its prompt
+        seeds the request's first output token. Returns tokens computed.
 
         Sub-chunk preemption (``eng.preempt_tile``): a BE tenant's chunks
         are split into tiles of at most ``preempt_tile`` tokens, and after
@@ -336,6 +782,13 @@ class _TorchBackend:
                 for c in group:
                     toks[c.slot] = c.req.tokens[c.start:c.start + Sq]
                     pos[c.slot] = c.start
+                    if kv is not None:
+                        # fork every shared page this chunk will write into
+                        for pg in range(c.start // kv.page_size,
+                                        (c.start + Sq - 1) // kv.page_size
+                                        + 1):
+                            if kv.needs_fork(c.slot, pg * kv.page_size):
+                                kv.fork_cow(rt.cache, c.slot, pg)
                 pt = kv.device_page_table() if kv is not None else None
                 with torch.inference_mode():
                     logits, rt.cache = rt.chunk_fn(
@@ -385,7 +838,8 @@ class _TorchBackend:
         if eng.preempt_hook is not None:
             return bool(eng.preempt_hook())
         return any(rt.spec.is_ls
-                   and any(r.phase is Phase.WAITING for r in rt.queue)
+                   and any(r.phase in (Phase.WAITING, Phase.SWAPPED)
+                           for r in rt.queue)
                    for rt in eng.tenants.values())
 
     def _abort_remaining(self, rt: _TenantRT, by_slot):
@@ -418,6 +872,14 @@ class _TorchBackend:
                              sum(r is not None for r in rt.active))
         live = np.zeros(rt.n_slots, bool)
         live[slots] = True
+        if rt.prefix is not None:
+            # safety net: a decode append must never mutate a shared page
+            # (admission reserves + chunk execution fork every predicted
+            # write, so this does not fire on the predicted paths)
+            for s in slots:
+                if rt.kv.needs_fork(s, int(rt.pos[s])):
+                    rt.kv.fork_cow(rt.cache, s,
+                                   int(rt.pos[s]) // rt.kv.page_size)
         dec_pos = np.where(live, rt.pos,
                            self._write_sentinel(rt)).astype(np.int32)
         pt = rt.kv.device_page_table() if rt.kv is not None else None
@@ -439,6 +901,9 @@ class _TorchBackend:
                     eng.registry.histogram("ls_tbt_all_ms").record(
                         (now - req.t_last) * 1e3)
             req.t_last = now
+            if req.t_evicted is not None:   # first token after a swap-in
+                rt.resume_gaps.append(now - req.t_evicted)
+                req.t_evicted = None
             if len(req.output) >= max(req.max_new, 1) \
                     or rt.pos[s] >= eng.max_seq:
                 self._finish(rt, s)
@@ -446,26 +911,45 @@ class _TorchBackend:
     def quantum(self, rt: _TenantRT) -> bool:
         """One scheduler-composed quantum: decode first (a request finishing
         here releases its KV pages before this quantum's admission pass),
-        then admission (slots + pages only), then prefill chunks under the
-        class token budget."""
+        with growth pages mapped before it; then admission (slots + pages
+        only), then swap-in progress, then prefill chunks under the class
+        token budget. Under recovery an expired queued request is shed
+        first."""
         eng = self.engine
         sched = eng.scheduler
+        shed_now = 0
+        if eng.fault_recovery:
+            # deadline shed pre-pass: an expired queued (WAITING/SWAPPED)
+            # request is dropped before it can consume admission or pages —
+            # under a fault storm BE deadlines turn backlog into shed work
+            # instead of batch-wide stall
+            now = eng.clock()
+            for req in [r for r in rt.queue
+                        if r.deadline is not None and now > r.deadline]:
+                self._shed(rt, req, "deadline")
+                shed_now += 1
         report = QuantumReport(rt.spec.name, rt.spec.priority,
                                budget=sched.budget_for(rt.spec.priority))
         dec = sched.decode_slots(rt)
+        if dec and eng.grow_pages and rt.kv is not None:
+            dec, report.swap_out_pages = self._ensure_growth(rt, dec)
         if dec:
             self._decode(rt, dec)
             report.decode_tokens = len(dec)
             if eng.arrival_hook is not None:
                 eng.arrival_hook(len(dec))
         admitted = sched.admit(rt, eng)
+        if rt.host is not None:
+            report.swap_in_pages = self._swap_progress(rt)
         if rt.chunk_fn is not None:
             chunks = sched.prefill_chunks(rt, len(dec))
             if chunks:
                 report.prefill_tokens = self._run_chunks(rt, chunks)
         elif admitted:
             report.prefill_tokens = self._prefill_monolithic(rt, admitted)
-        progressed = bool(dec or admitted or report.prefill_tokens)
+        progressed = bool(dec or admitted or report.prefill_tokens
+                          or report.swap_in_pages or report.swap_out_pages
+                          or shed_now)
         if progressed:
             eng.quantum_log.append(report)
             tr = eng.tracer
@@ -483,17 +967,20 @@ class _TorchBackend:
 
     def run_until_idle(self, max_steps: int = 100_000) -> int:
         eng = self.engine
-        n = 0
-        while n < max_steps and eng.step():
-            n += 1
+        n = stall = 0
+        while n < max_steps:
+            if eng.step():
+                n += 1
+                stall = 0
+                continue
+            # under a fault plane a quantum may legitimately defer (alloc
+            # window, swap backoff) — idle means no tenant has work, not
+            # one workless step; the stall cap bounds a wedged storm
+            if eng.faults is None or stall >= 10_000 \
+                    or not any(rt.has_work() for rt in eng.tenants.values()):
+                break
+            stall += 1
         return n
-
-
-def _not_ported(**opts):
-    for name, value in opts.items():
-        if value:
-            raise NotImplementedError(
-                f"ServingEngine({name}=...) is not ported yet")
 
 
 class ServingEngine:
@@ -514,6 +1001,18 @@ class ServingEngine:
       page_size    tokens per KV page (paged mode).
       kv_pages     page-pool size per tenant (default: the dense-row
                    capacity, ``slots * ceil(max_seq / page_size)``).
+      prefix_cache radix-tree copy-on-write KV page sharing (requires
+                   ``paged``); ``prefix_min_hit`` is the least hit fraction
+                   admission uses.
+      grow_pages   admit on ``ceil(prompt / page_size)`` pages and map decode
+                   pages at boundary crossings; on pool exhaustion the
+                   youngest younger request is preempted, or swapped out
+                   with ``swap`` (requires ``paged``).
+      swap         per-tenant host KV tier (HostSwapPool): victims' page
+                   groups and evicted prefix leaves move to the host and
+                   fault back in, at most ``swap_quantum_pages`` a quantum.
+      cold_dtype   host storage: "int8" (per-page abs-max scale, bounded
+                   error) or "fp16" (the pool's own bits: exact).
       use_flash    attention core through the CUDA kernels (the plain
                    versions when the device is the CPU).
       chunk_size   max prefill tokens a request advances per quantum
@@ -527,6 +1026,22 @@ class ServingEngine:
       chunk_governor  ChunkGovernor: SLO-driven chunk_size and BE prefill
                    budget on the same control tick.
       seed         tie-break seed for deterministic tenant ordering.
+      faults       FaultPlane: seeded injection at the host tier, the
+                   allocator and the control tick (module docstring).
+      fault_recovery  master switch for the recovery paths (deadline
+                   shedding, swap retry with backoff, the watchdog, the
+                   cold-page CRC check, the degradation ladder).
+      fault_budget recoveries per degradation-ladder rung (per tenant).
+      max_queue    per-tenant submit backpressure bound (excess rejects).
+      swap_retry_limit  swap-in retries before preempt-restart.
+      deadlock_patience  consecutive victimless growth stalls before a
+                   grow deadlock is declared (and, for BE under recovery,
+                   the youngest active request shed).
+      watchdog_quanta  LS-starvation window before the safe-plan snap
+                   (default: 4 control intervals when a fault plane and a
+                   controller are both present, else off).
+      safe_plan    the watchdog's target (default: the frontier's most
+                   conservative entry, else ``faults.safe_floor(plan)``).
       torch_device "cuda" (default) or "cpu". Raises if CUDA is asked for
                    and absent.
     """
@@ -540,9 +1055,15 @@ class ServingEngine:
                  chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None, hit_aware: bool = True,
                  controller=None, control_interval: int = 4,
-                 prefix_cache: bool = False, seed: int = 0,
-                 grow_pages: bool = False, swap: bool = False,
-                 faults=None, max_queue: int = 4096,
+                 prefix_cache: bool = False, prefix_min_hit: float = 0.0,
+                 seed: int = 0, grow_pages: bool = False, swap: bool = False,
+                 cold_dtype: str = "int8", swap_quantum_pages: int = 4,
+                 faults: Optional[FaultPlane] = None,
+                 fault_recovery: bool = True, fault_budget: int = 8,
+                 max_queue: int = 4096, swap_retry_limit: int = 3,
+                 deadlock_patience: int = 8,
+                 watchdog_quanta: Optional[int] = None,
+                 safe_plan: Optional[ResourcePlan] = None,
                  tracer=None, trace_name: str = "",
                  preempt_tile: Optional[int] = None,
                  arrival_hook=None, chunk_governor=None,
@@ -552,8 +1073,10 @@ class ServingEngine:
                                       "yet")
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r}")
-        _not_ported(prefix_cache=prefix_cache, grow_pages=grow_pages,
-                    swap=swap, faults=faults)
+        if (grow_pages or swap) and not paged:
+            raise ValueError("grow_pages/swap require paged=True")
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache=True requires paged=True")
         self.torch_device = resolve_device(torch_device)
         self.backend_name = backend
         self.max_seq = max_seq
@@ -569,7 +1092,21 @@ class ServingEngine:
         self.kv_pages = kv_pages
         self.use_flash = use_flash
         self.chunk_size = chunk_size
-        self.grow_pages = False
+        # KV memory hierarchy (module docstring)
+        self.grow_pages = grow_pages
+        self.swap = swap
+        assert cold_dtype in ("int8", "fp16"), cold_dtype
+        self.cold_dtype = cold_dtype
+        self.swap_quantum_pages = max(int(swap_quantum_pages), 1)
+        # construction-time default the tidal controller restores when a
+        # plan stops carrying a swap_quantum_pages override (apply_plan)
+        self._default_swap_quantum = self.swap_quantum_pages
+        # the disaggregation seams of the reference (serving.disagg) are
+        # not ported: nothing sets or reads them
+        self.chunk_hook = None
+        self.migrate_hook = None
+        self.prefix_cache = prefix_cache
+        self.prefix_min_hit = prefix_min_hit
         self.preempt_tile = (None if not preempt_tile
                              else max(int(preempt_tile), 1))
         self.arrival_hook = arrival_hook
@@ -586,7 +1123,7 @@ class ServingEngine:
             budget_be=token_budget,
             prefill_budget_be=(plan.prefill_budget
                                if plan is not None else None),
-            hit_aware=hit_aware)
+            hit_aware=hit_aware, prefix_min_hit=prefix_min_hit)
         self.quantum_log: List[QuantumReport] = []
         # bytes the arena's resplits moved (charged, never copied: the
         # resplit is placement bookkeeping)
@@ -596,19 +1133,36 @@ class ServingEngine:
         self._rid = 0
         self.plan = plan
         self.ch_be = plan.ch_be if plan is not None else ch_be
-        self.max_queue = max(int(max_queue), 1)
         # BE quantum share: fraction of engine quanta BE receives while LS
         # work is pending (None/0 -> strict LS priority)
         self.sm_be = plan.sm_be if plan is not None else 0.0
         self._be_credit = 0.0
-        # a plan's host-tier knob (swap_quantum_pages) is stored by
-        # apply_plan as the reference does; the host tier is not ported,
-        # so nothing reads it yet
-        self.swap_quantum_pages = self._default_swap_quantum = 4
         # online control plane (module docstring): a decide()-bearing
         # controller makes the plan time-varying at step boundaries
         self.controller = controller
         self.control_interval = max(int(control_interval), 1)
+        # fault plane (module docstring): fault_recovery gates every
+        # recovery path at once (off = the naive ablation: blind retries,
+        # no watchdog, no shedding, unverified cold pages)
+        self.faults = faults
+        if faults is not None and tracer is not None:
+            faults.tracer = self.tracer
+        self.fault_recovery = fault_recovery
+        self.fault_budget = max(int(fault_budget), 1)
+        self.max_queue = max(int(max_queue), 1)
+        self.swap_retry_limit = max(int(swap_retry_limit), 0)
+        self.deadlock_patience = max(int(deadlock_patience), 1)
+        if (watchdog_quanta is None and faults is not None
+                and controller is not None and fault_recovery):
+            watchdog_quanta = 4 * self.control_interval
+        self.watchdog_quanta = watchdog_quanta
+        self.safe_plan = safe_plan
+        self.watchdog_trips = 0
+        self.missed_ticks = 0
+        self.stale_signals = 0
+        self._stale_sig = None
+        self._last_ls_step: Optional[int] = None
+        self._ls_work_since: Optional[int] = None
         self.transitions: List[dict] = []
         self._applied_plan = None
         self._last_ctl_step: Optional[int] = None
@@ -680,8 +1234,12 @@ class ServingEngine:
         self.tenants[spec.name] = rt
         return rt
 
-    def submit(self, tenant: str, tokens, max_new: int = 8, at=None):
-        """Queue a request. ``at`` overrides the submit timestamp. Malformed
+    def submit(self, tenant: str, tokens, max_new: int = 8, at=None,
+               deadline: Optional[float] = None):
+        """Queue a request. ``at`` overrides the submit timestamp.
+        ``deadline`` is in clock units after submit: an expired request
+        still WAITING/SWAPPED is load-shed instead of served late (a
+        recovery path: no-op when ``fault_recovery`` is off). Malformed
         input raises (unknown tenant: KeyError; empty / non-1-D prompt:
         ValueError); an oversized prompt or a full per-tenant queue
         (``max_queue``) is *rejected* — the request finishes immediately
@@ -694,7 +1252,9 @@ class ServingEngine:
             raise ValueError("prompt must be a non-empty 1-D token array")
         self._rid += 1
         t = float(at) if at is not None else self.clock()
-        req = Request(self._rid, tenant, toks, max_new, t)
+        req = Request(self._rid, tenant, toks, max_new, t,
+                      deadline=(t + float(deadline)
+                                if deadline is not None else None))
         if toks.size > self.max_seq or len(rt.queue) >= self.max_queue:
             req.failed = req.rejected = True
             req.phase = Phase.FINISHED
@@ -745,27 +1305,32 @@ class ServingEngine:
                outcome=outcome)
 
     def _trace_done(self, rt, req):
-        """Terminal accounting instant with the SLO verdict against
-        ``spec.slo_ms`` (None when the tenant has no SLO); a violation also
-        emits a ``violation`` instant."""
+        """Terminal accounting instant with the SLO verdict: ``ok`` is
+        True/False against ``spec.slo_ms`` (milliseconds) or, failing that,
+        the request's own ``deadline`` (clock units); None when the request
+        carries no SLO at all. A violation also emits a ``violation``
+        instant."""
         tr = self.tracer
         if not tr.enabled("request"):
             return
         t = req.t_done if req.t_done is not None else self.clock()
         lat = req.latency
         slo = rt.spec.slo_ms
-        if slo is None:
-            ok = None
-        elif req.failed:
-            ok = False
+        has_slo = slo is not None or req.deadline is not None
+        if req.failed:
+            ok = False if has_slo else None
+        elif slo is not None and lat is not None:
+            ok = bool(lat * 1e3 <= slo)
+        elif req.deadline is not None:
+            ok = bool(t <= req.deadline)
         else:
-            ok = bool(lat is not None and lat * 1e3 <= slo)
+            ok = None
         lat_ms = lat * 1e3 if lat is not None else None
         track = f"{self._trace_prefix}slo"
         tr.instant("request", "done", t, track, rid=req.rid,
                    tenant=rt.spec.name, cls=rt.spec.priority, ok=ok,
                    latency_ms=lat_ms, t_submit=req.t_submit,
-                   shed=False, rejected=req.rejected)
+                   shed=req.shed, rejected=req.rejected)
         if ok is False:
             tr.instant("violation", "slo", t, track, rid=req.rid,
                        tenant=rt.spec.name, latency_ms=lat_ms,
@@ -834,9 +1399,16 @@ class ServingEngine:
             return
         self._last_ctl_step = self._step_idx
         now = self.clock()
+        if (self.faults is not None
+                and self.faults.active("ctl_missed_tick", now) is not None):
+            # control-plane fault: the tick is dropped on the floor — the
+            # previous plan stays in force and the step() watchdog is the
+            # backstop that re-asserts the LS guarantee
+            self.missed_ticks += 1
+            return
         sig = self._load_signal()
-        # the prefix-hit gauge the reference's timeline reads: 0.0 until the
-        # prefix cache is ported (measured_prefix_hit reads rt.prefix)
+        # live prefix-hit feedback as a windowed gauge (hit tokens over
+        # prompt tokens of every tenant's prefix cache)
         hit = measured_prefix_hit(self)
         self.registry.gauge("measured_prefix_hit").set(hit)
         tr = self.tracer
@@ -847,6 +1419,15 @@ class ServingEngine:
                 tr.counter("ls_slo_attainment", now, sig.ls_slo_attainment,
                            track=sig_track)
             tr.counter("measured_prefix_hit", now, hit, track=sig_track)
+        if (self.faults is not None
+                and self.faults.active("ctl_stale_signal", now) is not None):
+            # stale telemetry: the controller decides on the last healthy
+            # window's signal instead of the current one
+            self.stale_signals += 1
+            if self._stale_sig is not None:
+                sig = self._stale_sig
+        else:
+            self._stale_sig = sig
         if self.chunk_governor is not None:
             self._govern_chunks(sig, now)
         if self.controller is None:
@@ -859,12 +1440,22 @@ class ServingEngine:
             self.apply_plan(plan, cause=cause)
         elif self.arena is not None:
             # drain leftover off-color pages from an earlier partial
-            # migration (BE groups still borrowing LS channels)
-            debt = {n: a.channels
-                    for n, a in self.arena.allocations.items()
-                    if self.arena.isolation_violations(a)}
+            # migration (BE groups still borrowing LS channels) — but never
+            # a pinned shared group: a prefix-tree page another slot's page
+            # table still references stays put until its refs drop, then
+            # drains to the current color here
+            pinned = set()
+            debt = {}
+            for rt in self.tenants.values():
+                if rt.prefix is not None:
+                    pinned.update(rt.prefix.pinned_names())
+                    debt.update(rt.prefix.drain_recolor())
+            debt.update({n: a.channels
+                         for n, a in self.arena.allocations.items()
+                         if n not in pinned and n not in debt
+                         and self.arena.isolation_violations(a)})
             if debt:
-                self.arena.resplit(debt)
+                self.arena.resplit(debt, pinned=pinned)
                 self.migrated_bytes += self.arena.last_resplit["bytes"]
 
     def _govern_chunks(self, sig, now: float):
@@ -912,18 +1503,24 @@ class ServingEngine:
         pages migrate to the new sets) and recolors every KV page pool so
         future page groups land on the new split. Device pools and page
         tables are untouched — a mid-run plan change never alters tokens,
-        and no device copy is made. The migration's moved bytes are
-        charged to ``migrated_bytes``."""
+        and no device copy is made. Prefix-tree node groups whose pages a
+        live page table still references are *pinned* out of the resplit
+        (they drain later in :meth:`_maybe_control`). The migration's moved
+        bytes are charged to ``migrated_bytes``."""
         prev = self._applied_plan
         self.sm_be = plan.sm_be
         # prefill-budget knob: tidal re-planning throttles BE prefill
         # tokens per quantum, not only BE's SM share
         self.scheduler.set_prefill_budget(
             getattr(plan, "prefill_budget", None))
+        # swap-aware knob: a contended plan throttles BE host-tier fault
+        # bandwidth (pages per quantum); a plan without the knob restores
+        # the construction-time default
         sq = getattr(plan, "swap_quantum_pages", None)
         self.swap_quantum_pages = (self._default_swap_quantum if sq is None
                                    else max(int(sq), 1))
         moved = 0
+        pinned = []
         if self.arena is not None and (prev is None
                                        or plan.ch_be != prev.ch_be):
             new_ls, new_be = self._channel_sets(plan.ch_be)
@@ -932,10 +1529,13 @@ class ServingEngine:
                 chans = new_ls if rt.spec.is_ls else new_be
                 if rt.kv is not None:
                     mapping.update(rt.kv.recolor(chans))
+                    if rt.prefix is not None:
+                        mapping.update(rt.prefix.recolor(chans))
+                        pinned += rt.prefix.pinned_names()
                 elif rt.alloc_name is not None:
                     mapping[rt.alloc_name] = chans
             self.ls_ch, self.be_ch = new_ls, new_be
-            moved = sum(self.arena.resplit(mapping).values())
+            moved = sum(self.arena.resplit(mapping, pinned=pinned).values())
             self.migrated_bytes += self.arena.last_resplit["bytes"]
         self._applied_plan = plan
         self.transitions.append({"step": self._step_idx,
@@ -944,13 +1544,55 @@ class ServingEngine:
                                  "bytes_moved": int(
                                      moved * (self.arena.granularity
                                               if self.arena else 0)),
-                                 "pinned_groups": 0,
+                                 "pinned_groups": len(pinned),
                                  "cause": cause})
         self.tracer.instant("plan", cause, self.clock(),
                             f"{self._trace_prefix}plan",
                             sm_be=float(plan.sm_be),
                             ch_be=float(plan.ch_be),
                             pages_moved=int(moved), step=self._step_idx)
+
+    def _safe_plan(self) -> Optional[ResourcePlan]:
+        """The conservative plan the watchdog snaps to: an explicit
+        ``safe_plan`` wins; else the controller frontier's most conservative
+        entry; else the current plan clamped to the hard floor
+        (``faults.safe_floor``)."""
+        if self.safe_plan is not None:
+            return self.safe_plan
+        fr = getattr(self.controller, "frontier", None)
+        if fr is not None and getattr(fr, "entries", None):
+            return fr.entries[-1][1]
+        base = self._applied_plan or self.plan
+        return safe_floor(base) if base is not None else None
+
+    def _watchdog(self, ls_work: bool):
+        """Controller watchdog (a recovery path): if LS has had work for
+        ``watchdog_quanta`` consecutive steps without a single LS quantum
+        executing, while the live plan is more generous to BE than the safe
+        plan, snap to the safe plan immediately. This bounds the damage of
+        a wedged or stale controller to one watchdog window."""
+        if not ls_work:
+            self._ls_work_since = None
+            return
+        if self._ls_work_since is None:
+            self._ls_work_since = self._step_idx
+        anchor = self._ls_work_since
+        if self._last_ls_step is not None:
+            anchor = max(anchor, self._last_ls_step)
+        if self._step_idx - anchor < self.watchdog_quanta:
+            return
+        safe = self._safe_plan()
+        if safe is None or self.sm_be <= safe.sm_be + 1e-9:
+            # already at (or below) the safe share: nothing to snap; re-arm
+            self._last_ls_step = self._step_idx
+            return
+        self.apply_plan(safe, cause="watchdog")
+        self.transitions[-1]["watchdog"] = True
+        self.watchdog_trips += 1
+        self.tracer.instant("recovery", "watchdog", self.clock(),
+                            f"{self._trace_prefix}recovery",
+                            step=self._step_idx)
+        self._last_ls_step = self._step_idx
 
     # ------------------------------------------------------------------
     def _pick(self, rts: List[_TenantRT]) -> List[_TenantRT]:
@@ -971,6 +1613,8 @@ class ServingEngine:
               if rt.spec.is_ls and rt.has_work()]
         be = [rt for rt in self.tenants.values()
               if not rt.spec.is_ls and rt.has_work()]
+        if self.watchdog_quanta and self.fault_recovery:
+            self._watchdog(bool(ls))
         if ls and be and self.sm_be > 0:
             # deficit counter: BE receives sm_be of contended quanta
             self._be_credit += self.sm_be
@@ -991,10 +1635,16 @@ class ServingEngine:
         # of the class, then to the other class
         for rt in self._pick(pick) + self._pick(other):
             if self.backend.quantum(rt):
+                if rt.spec.is_ls:
+                    self._last_ls_step = self._step_idx
                 self.events.append((self._step_idx,
                                     rt.spec.name, rt.spec.priority))
                 self._step_idx += 1
                 return True
+        # a workless or fully-deferred step still advances the quantum
+        # index: swap retry backoffs and the watchdog window are measured
+        # in _step_idx, and freezing it during a stall would turn a
+        # transient fault window into a permanent wedge
         self._step_idx += 1
         return False
 
@@ -1055,16 +1705,36 @@ class ServingEngine:
                 out[name]["kv_pages"] = {"total": rt.kv.n_pages,
                                          "in_use": rt.kv.used_pages,
                                          "page_size": rt.kv.page_size}
+            if rt.prefix is not None:
+                out[name]["prefix_cache"] = rt.prefix.stats()
             if rt.chunk_aborts:
                 out[name]["chunk_aborts"] = rt.chunk_aborts
+            if rt.host is not None or rt.preemptions or rt.grow_stalls:
+                sw = {"preemptions": rt.preemptions,
+                      "swap_outs": rt.swap_outs,
+                      "swap_ins": rt.swap_ins,
+                      "grow_stalls": rt.grow_stalls,
+                      "resume": self._pcts(rt.resume_gaps)}
+                if rt.host is not None:
+                    sw["host"] = rt.host.stats()
+                out[name]["swap"] = sw
             if rt.prefill_tokens:
                 out[name]["prefill_tokens"] = {
                     "admitted": rt.prefill_tokens,
                     "computed": rt.prefill_computed,
                     "saved": rt.prefill_tokens - rt.prefill_computed,
                 }
-            if rt.rejected:
-                out[name]["rejected"] = rt.rejected
+            if (rt.rejected or rt.shed or rt.grow_deadlocks
+                    or rt.swap_retries or rt.fault_recoveries
+                    or rt.degraded):
+                out[name]["faults"] = {
+                    "rejected": rt.rejected,
+                    "shed": rt.shed,
+                    "grow_deadlocks": rt.grow_deadlocks,
+                    "swap_retries": rt.swap_retries,
+                    "recovered": dict(rt.fault_recoveries),
+                    "degraded": list(rt.degraded),
+                }
             c = cls[rt.spec.priority]
             c["done"] += lats
             c["ttft"] += ttfts
@@ -1115,6 +1785,31 @@ class ServingEngine:
                 name: {"violations": self.arena.isolation_violations(a),
                        "pages": a.n_pages}
                 for name, a in self.arena.allocations.items()}
+        # fault-plane rollup: injected (observed) events vs. the recovery
+        # actions they triggered, plus the degradation state — present
+        # whenever a fault plane is attached or any recovery path fired
+        fa = {"injected": dict(self.faults.counts())
+              if self.faults is not None else {},
+              "recovered": {}, "shed": 0, "rejected": 0,
+              "grow_deadlocks": 0, "swap_retries": 0,
+              "watchdog_trips": self.watchdog_trips,
+              "missed_ticks": self.missed_ticks,
+              "stale_signals": self.stale_signals,
+              "degraded_tenants": {}}
+        for name, rt in self.tenants.items():
+            for k, v in rt.fault_recoveries.items():
+                fa["recovered"][k] = fa["recovered"].get(k, 0) + v
+            fa["shed"] += rt.shed
+            fa["rejected"] += rt.rejected
+            fa["grow_deadlocks"] += rt.grow_deadlocks
+            fa["swap_retries"] += rt.swap_retries
+            if rt.degraded:
+                fa["degraded_tenants"][name] = list(rt.degraded)
+        fa["degraded"] = bool(fa["degraded_tenants"])
+        if self.faults is not None or fa["recovered"] or fa["shed"] \
+                or fa["rejected"] or fa["grow_deadlocks"] \
+                or fa["swap_retries"] or fa["watchdog_trips"]:
+            out["faults"] = fa
         if (self.registry.ticks or self.registry.histograms
                 or self.registry.gauges):
             out["_registry"] = self.registry.snapshot()

@@ -18,8 +18,9 @@ pools and page tables never move with it.
 The host-side metadata (page tables, free lists, refcounts, arena groups)
 is the reference's numpy bookkeeping, copied as it is. The device side is
 torch: the pools (``init_pools``), the page table as an int32 tensor on the
-engine's device (``device_page_table``), and the copy-on-write page copy
-(``fork_cow``).
+engine's device (``device_page_table``), the copy-on-write page copy
+(``fork_cow``) and the whole-page blit of freshly prefilled dense rows
+(``write_prefill``), each written in place.
 """
 from __future__ import annotations
 
@@ -452,6 +453,32 @@ class PagedKVCache:
                 self.device)
         return self._pt_dev
 
+    def write_prefill(self, pools, prefill_cache, slots: Sequence[int],
+                      length: int):
+        """Blit freshly prefilled dense rows into the slots' pages as
+        whole-page writes, in place. ``prefill_cache`` leaves carry [.., B,
+        .., Lp, ..] with Lp a multiple of page_size covering ``length``;
+        pageable leaves have their sequence axis at -2. A page-table entry
+        at the unmapped sentinel drops its page's write."""
+        ps = self.page_size
+        n_chunks = self.pages_for(max(length, 1))
+        flat_pages = np.concatenate(
+            [self.page_table[s, :n_chunks] for s in slots]).astype(np.int64)
+        kw = dict(idx=flat_pages, B=len(slots), n_chunks=n_chunks, ps=ps)
+        for pp, dp in zip(pools.get("prefix", []),
+                          prefill_cache.get("prefix", [])):
+            for name in pp:
+                _blit_pages(pp[name], dp[name], batch_axis=0, **kw)
+
+        def layers(pool, dense):
+            if isinstance(pool, dict):
+                for name in pool:
+                    layers(pool[name], dense[name])
+            else:
+                _blit_pages(pool, dense, batch_axis=1, **kw)
+        layers(pools["layers"], prefill_cache["layers"])
+        return pools
+
 
 def _copy_page_tree(pools, src: int, dst: int):
     """Device-side page copy for a copy-on-write fork: every pool leaf's
@@ -468,3 +495,20 @@ def _copy_page_tree(pools, src: int, dst: int):
 def _copy_page(pool, *, src, dst, batch_axis):
     ix = (slice(None),) * batch_axis
     pool[ix + (dst,)] = pool[ix + (src,)]
+
+
+def _blit_pages(pool, dense, *, idx, B, n_chunks, ps, batch_axis):
+    """dense: [..B at batch_axis.., *mid, Lp+, T]; slice the first
+    n_chunks*ps tokens, split the seq axis into (n_chunks, ps) chunks and
+    copy them onto the pool's page axis at ``idx`` (entries past the pool
+    are dropped)."""
+    x = dense.narrow(dense.ndim - 2, 0, n_chunks * ps)
+    x = x.reshape(x.shape[:-2] + (n_chunks, ps) + x.shape[-1:])
+    x = x.movedim(-3, batch_axis + 1)
+    x = x.reshape(x.shape[:batch_axis] + (B * n_chunks,)
+                  + x.shape[batch_axis + 2:])
+    keep = np.flatnonzero(idx < pool.shape[batch_axis])
+    sel = torch.from_numpy(keep).to(x.device)
+    pool.index_copy_(batch_axis, torch.from_numpy(idx[keep]).to(pool.device),
+                     x.index_select(batch_axis, sel).to(pool.device,
+                                                        pool.dtype))

@@ -251,8 +251,20 @@ def test_engine_runs_on_cuda_unless_asked_for_cpu():
 @pytest.mark.parametrize("opt", ["prefix_cache", "grow_pages", "swap",
                                  "faults"])
 def test_unported_options_raise(opt):
+    """The KV hierarchy and the fault plane are ported: each option builds
+    a paged engine, and the hierarchy's options raise ValueError without
+    ``paged=True``, as the reference's do. The simulator backend is not
+    ported and raises with any of them."""
+    from repro_torch.serving import FaultPlane
+    value = FaultPlane([]) if opt == "faults" else True
+    eng = ServingEngine(torch_device="cpu", paged=True, **{opt: value})
+    assert getattr(eng, opt) is value
+    if opt != "faults":
+        with pytest.raises(ValueError, match="paged=True"):
+            ServingEngine(torch_device="cpu", **{opt: value})
     with pytest.raises(NotImplementedError):
-        ServingEngine(torch_device="cpu", **{opt: True})
+        ServingEngine(torch_device="cpu", backend="sim", paged=True,
+                      **{opt: value})
 
 
 def test_unknown_or_unported_backend_raises():
