@@ -78,10 +78,12 @@ non-zero:
              (b) zamba2-1.2b at its published width in f32: ``forward``
              (chunk 64) against token-by-token ``prefill`` of 2 x 128
              tokens; (c) the dense engine with use_flash: LS zamba2-1.2b +
-             BE rwkv6-7b, 4 slots each, max_seq 512, sm_be 0.3, 4 prompts
-             of 64-256 tokens per class in two length groups, 16 new
-             tokens; every zamba2 decode step launches decode_attention
-             once per shared-block invocation (6).
+             BE rwkv6-7b at half depth (SSM_ENGINE_LAYERS: zamba2's 2
+             prefix layers and 3 of its 6 periods, rwkv6 16 of 32 layers;
+             published widths), 4 slots each, max_seq 512, sm_be 0.3, 4
+             prompts of 64-256 tokens per class in two length groups, 16
+             new tokens; every zamba2 decode step launches decode_attention
+             once per shared-block invocation (3 at that depth).
 9. tidal   — SGDRC's control plane on phase 5's engine and prompts, with
              one set of weights from the seed: KV page pools colored from a
              3 GiB ColoredArena over the tesla-p40 channel hash (12
@@ -122,15 +124,52 @@ non-zero:
              ladder's flash_to_dense rung on phase 6b's f32 LS tenant: its
              tokens equal the torch-op engine's and no kernel launches
              after it. Every bf16 prefill of (a)-(c) on "wgmma".
+11. disaggregation and the launcher — (a) phase 5's 8 LS qwen3-1.7b
+             prompts and LS weights (bf16, paged, page 16, chunk 256,
+             max_seq 2048, use_flash, 8 slots a slice, 32 new tokens):
+             co-located on a virtual clock of 1 ms a quantum, then the
+             DisaggregatedEngine over the modeled interconnect (host star,
+             its virtual clock), pipelined twice, whole-group, and at 4
+             devices with 2 prefilling; the modeled devices share the one
+             card. Required: every request's tokens in every run bit-equal
+             to co-located, the two seeded pipelined runs' fingerprints
+             equal, 8 migrations delivered, xfer_bytes exactly the pages
+             shipped x WIRE_PAGE_BYTES (and the pages the prompts' own),
+             every prefill launch on "wgmma", the decode slice launching
+             decode_attention_paged and the prefill slice no decode; in the
+             first run every page the decode slice restores bit-equal to
+             the prefill slice's page as shipped, and a planted fault (one
+             bf16 exponent bit of a wire page flipped after its CRC, the
+             pool's check off) read by that check. Printed: each run's
+             wall, host ms a wire put and get, flows and flows a request,
+             the decode slice's TTFT and TBT p50/p99 on the virtual clock,
+             work_conservation, launches by slice. (b) the launcher
+             ``repro_torch.launch.serve.main`` in-process at its defaults
+             (LS qwen3-1.7b, BE gemma2-9b smoke configs in f32) with six
+             flag sets (LAUNCH_SETS): every metrics JSON parses, every
+             request completes (on sim: the LS stream; BE is modeled over
+             the launcher's horizon), each run launches exactly the kernels
+             of its KV path (paged or dense; none on sim) with every
+             prefill on "simt", every one of those launches (the inputs
+             copied at the call) within TOL of its plain version at the
+             shapes the run gave it (H 4, Hkv 2, D 32, page 8), a planted
+             fault in one output caught, each --use-flash run's tokens
+             equal to the same flags' run without it (which launches no
+             kernel), and the trace's JSONL passes
+             ``repro_torch.obs.schema``.
 
-Launch counts of phases 5, 6, 6b, 7, 8a, 8c, 9 and 10 are read with the
+Launch counts of phases 5, 6, 6b, 7, 8a, 8c, 9, 10 and 11 are read with the
 counters set to 0 just before each phase drives its path (phases 7 and 8a
 count their drive, before their checks and timings). The next-to-last line
 is one JSON object with every kernel's launches and times (phase 3's f32
 rows of the four engine kernels under "float32", with phase 6b's launches;
-phase 9's runs under "tidal_launches" and phase 10's (a)-(c) under
-"hierarchy_launches" of the two paged rows); the last line is the device
-JSON. ``--from 10`` runs phases 1-3 and 10 alone (no result lines).
+phase 9's runs under "tidal_launches", phase 10's (a)-(c) under
+"hierarchy_launches" and phase 11a's runs under "disagg_launches" of the
+two paged rows, phase 11b's launches by flag set and their worst error
+under "launcher" of the four engine kernels' rows); the last line is the
+device JSON. ``--from 10`` and
+``--from 11`` run phases 1-3 and that phase alone, ``--until N`` stops
+after phase N (no result lines either way).
 """
 from __future__ import annotations
 
@@ -1623,6 +1662,9 @@ def hybrid_model_phase(torch, seed):
     torch.cuda.empty_cache()
 
 
+SSM_ENGINE_LAYERS = (20, 16)      # phase 8c: zamba2-1.2b, rwkv6-7b
+
+
 def ssm_engine_phase(torch, seed):
     """(c) the dense engine: LS zamba2-1.2b + BE rwkv6-7b, use_flash."""
     import numpy as np
@@ -1635,10 +1677,14 @@ def ssm_engine_phase(torch, seed):
     lens = {c: [int(x) for x in np.repeat(rng.choice(np.arange(64, 257), 2,
                                                      replace=False), 2)]
             for c in ("LS", "BE")}
-    zamba, rwkv = get_config("zamba2-1.2b"), get_config("rwkv6-7b")
+    # half depth (the script's time budget; widths as published): zamba2
+    # keeps its 2 prefix layers and 3 of its 6 periods, rwkv6 16 of 32
+    zamba, rwkv = (get_config(name).replace(num_layers=n) for name, n in
+                   zip(("zamba2-1.2b", "rwkv6-7b"), SSM_ENGINE_LAYERS))
     plan = _engine_plan()
     max_new = 16
-    log(f"  LS zamba2-1.2b prompts {lens['LS']}; BE rwkv6-7b prompts "
+    log(f"  LS zamba2-1.2b ({zamba.num_layers} of 38 layers) prompts "
+        f"{lens['LS']}; BE rwkv6-7b ({rwkv.num_layers} of 32 layers) prompts "
         f"{lens['BE']}; max_new {max_new}")
     eng = ServingEngine(max_seq=512, paged=False, use_flash=True,
                         slots_ls=4, slots_be=4, plan=plan,
@@ -1651,8 +1697,8 @@ def ssm_engine_phase(torch, seed):
     tf.tree_map(lambda a: sizes.append(a.numel()),
                 eng.tenants["be-rwkv6"].params)
     n_be = sum(sizes)
-    log(f"  tenants ready in {time.perf_counter() - t0:.1f}s (rwkv6-7b: "
-        f"{n_be / 1e9:.2f} B parameters in bf16)")
+    log(f"  tenants ready in {time.perf_counter() - t0:.1f}s (rwkv6-7b at "
+        f"{rwkv.num_layers} layers: {n_be / 1e9:.2f} B parameters in bf16)")
     reqs = []
     for name, cls, cfg in (("ls-zamba2", "LS", zamba),
                            ("be-rwkv6", "BE", rwkv)):
@@ -2345,15 +2391,465 @@ def hierarchy_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: disaggregation and the launcher
+# ---------------------------------------------------------------------------
+
+# one qwen3-1.7b KV page on the wire, bf16 carried as its raw 16 bits:
+# 16 tokens x 28 layers x 8 KV heads x 128 dims x (K, V) x 2 bytes
+WIRE_PAGE_BYTES = PAGE * 28 * 8 * 128 * 2 * 2
+DISAGG_MAX_NEW = 32
+
+
+def _slice_launches(eng, into):
+    """Add the kernel launches made inside ``eng.step`` to ``into``."""
+    from repro_torch.kernels import ops
+    inner = eng.step
+
+    def step():
+        before = ops.launch_counts()
+        try:
+            return inner()
+        finally:
+            for k, v in ops.launch_counts().items():
+                into[k] = into.get(k, 0) + v - before[k]
+    eng.step = step
+
+
+def _wire_check(dis, tenant, plant_at=None):
+    """Hold every page the decode slice restores from the wire against the
+    page the prefill slice shipped: a device copy of the prefill pool's
+    page taken at the put, compared bit for bit with the decode pool's
+    page right after the get. ``plant_at``: the wire copy of that put
+    (1-based) has one bf16 exponent bit flipped after its CRC was taken
+    (the decode pool's check is turned off, so the page is served)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.swap import _page_leaves
+    host = dis.decode.tenants[tenant].host
+    put, get = host.put, host.get
+    shipped, res = {}, {"pages": 0, "bad": [], "planted": []}
+    if plant_at is not None:
+        host.verify = False
+
+    def put_(pools, key, page, t=0.0):
+        n = put(pools, key, page, t=t)
+        shipped[key] = [leaf.select(ax, page).clone()
+                        for leaf, ax in _page_leaves(pools)]
+        if plant_at is not None and len(shipped) == plant_at:
+            hp = host.pages[key]
+            rot = hp.leaves[0].copy()
+            rot.view(np.uint16).reshape(-1)[0] ^= 0x4000
+            hp.leaves[0] = rot
+            res["planted"].append(key)
+        return n
+
+    def get_(pools, key, dest, t=0.0):
+        out = get(pools, key, dest, t=t)
+        want = shipped.pop(key)
+        res["pages"] += 1
+        if not all(torch.equal(leaf.select(ax, dest), w)
+                   for (leaf, ax), w in zip(_page_leaves(pools), want)):
+            res["bad"].append(key)
+        return out
+    host.put, host.get = put_, get_
+    return res
+
+
+def _disagg_run(torch, params, prompts, *, tenant, check=False,
+                timers=False, plant_at=None, **kw):
+    """One DisaggregatedEngine run over ``prompts`` at phase 5's LS
+    settings. Returns the engine and what the run recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DisaggregatedEngine
+    dis = DisaggregatedEngine(max_seq=2048, page_size=PAGE, chunk_size=256,
+                              slots_prefill=8, slots_decode=8,
+                              use_flash=True, seed=0, torch_device="cuda",
+                              **kw)
+    dis.add_tenant(TenantSpec(tenant, "LS"), get_config("qwen3-1.7b"),
+                   params=params)
+    rec = {"slices": {"prefill": {}, "decode": {}}}
+    _slice_launches(dis.prefill, rec["slices"]["prefill"])
+    _slice_launches(dis.decode, rec["slices"]["decode"])
+    if check or plant_at is not None:
+        rec["wire"] = _wire_check(dis, tenant, plant_at)
+    if timers:
+        rec["host"] = _timed_calls([(dis.decode.tenants[tenant].host, n, n)
+                                    for n in ("put", "get")])
+    for p in prompts:
+        dis.submit(tenant, p, max_new=DISAGG_MAX_NEW)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dis.run_until_idle()
+    torch.cuda.synchronize()
+    rec["wall"] = time.perf_counter() - t0
+    rec["counts"] = ops.launch_counts()
+    rec["routes"] = ops.route_counts()
+    rec["outputs"] = dis.outputs(tenant)
+    rec["metrics"] = dis.metrics()
+    rec["shipped"] = sum(st.shipped_pages for st in dis._mig.values())
+    return dis, rec
+
+
+def disagg_phase(torch, seed):
+    """(a) phase 5's LS tenant served co-located, then disaggregated over
+    the modeled interconnect (pipelined twice, whole-group, 4 devices),
+    tokens and wire K/V held bit for bit, a planted wire fault caught.
+    Returns each run's launches of the two paged kernels."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    LS = "ls-qwen3"
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params = tf.init_params(cfg, seed, "cuda", dtype=torch.bfloat16)
+    lens = [int(x) for x in
+            np.random.default_rng(seed + 7).integers(128, 1025, 8)]
+    rng = np.random.default_rng(seed)      # phase 5's token draw
+    prompts = [rng.integers(0, cfg.vocab_size, L) for L in lens]
+    torch.cuda.synchronize()
+    log(f"  weights (phase 5's LS seed) ready in "
+        f"{time.perf_counter() - t_phase:.1f}s; LS prompts {lens}; max_new "
+        f"{DISAGG_MAX_NEW}; 8 slots a slice, virtual clock 1 ms a quantum")
+
+    # -- the co-located baseline on the same virtual clock ---------------
+    clock = {"t": 0.0}
+    eng = ServingEngine(max_seq=2048, paged=True, page_size=PAGE,
+                        use_flash=True, chunk_size=256, slots_ls=8,
+                        now_fn=lambda: clock["t"], torch_device="cuda")
+    eng.add_tenant(TenantSpec(LS, "LS"), cfg, params=params)
+    reqs = [eng.submit(LS, p, max_new=DISAGG_MAX_NEW) for p in prompts]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    while any(rt.has_work() for rt in eng.tenants.values()):
+        eng.step()
+        clock["t"] += 1e-3
+    torch.cuda.synchronize()
+    co_wall = time.perf_counter() - t0
+    co_counts = ops.launch_counts()
+    base = [[int(x) for x in r.output] for r in reqs]
+    require(all(len(o) == DISAGG_MAX_NEW for o in base),
+            "co-located run: a request did not complete")
+    co = eng.metrics()["_class"]["LS"]
+    log(f"  co-located: {len(eng.events)} quanta, wall {co_wall:.2f}s; "
+        f"virtual TTFT p50/p99 {co['ttft']['p50_ms']}/{co['ttft']['p99_ms']}"
+        f" ms, TBT p50/p99 {co['tbt']['p50_ms']}/{co['tbt']['p99_ms']} ms;"
+        f" launches {co_counts}")
+    del eng
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for name, kw in (("pipelined", {"check": True}),
+                     ("pipelined_replay", {"timers": True}),
+                     ("whole_group", {"timers": True, "pipeline": False}),
+                     ("n4_p2", {"n_devices": 4, "n_prefill": 2})):
+        dis, rec = _disagg_run(torch, params, prompts, tenant=LS, **kw)
+        rec["fingerprint"] = dis.fingerprint()
+        m = rec["metrics"]
+        dec = m["decode"]["_class"]["LS"]
+        ic, mig = m["interconnect"], m["migrations"]
+        host = rec.get("host")
+        host_line = "" if host is None else "; host ms a wire " + ", ".join(
+            f"{k} {sum(v) / max(len(v), 1):.3f} ({len(v)} calls)"
+            for k, v in host.items())
+        log(f"  {name}: wall {rec['wall']:.2f}s, {dis.rounds} rounds; "
+            f"flows {ic['flows']}, {mig['pipelined_flows_per_req']} a "
+            f"request; {rec['shipped']} pages shipped, xfer_bytes "
+            f"{ic['xfer_bytes']}; decode slice virtual TTFT p50/p99 "
+            f"{dec['ttft']['p50_ms']}/{dec['ttft']['p99_ms']} ms, TBT "
+            f"p50/p99 {dec['tbt']['p50_ms']}/{dec['tbt']['p99_ms']} ms; "
+            f"work_conservation {m['work_conservation']}{host_line}")
+        log(f"    launches by slice {rec['slices']}; prefill routes "
+            f"{rec['routes']['prefill_attention_paged']}")
+        for i, (got, want) in enumerate(zip(rec["outputs"], base)):
+            if got != want:
+                j = next((k for k, (u, v) in enumerate(zip(got, want))
+                          if u != v), min(len(got), len(want)))
+                raise Check(f"{name}: request {i} ({lens[i]} tokens) "
+                            f"differs from co-located at token {j}")
+        require(mig["delivered"] == len(prompts) and mig["in_flight"] == 0,
+                f"{name}: migrations {mig}")
+        require(ic["xfer_bytes"] == rec["shipped"] * WIRE_PAGE_BYTES,
+                f"{name}: xfer_bytes {ic['xfer_bytes']} != "
+                f"{rec['shipped']} pages x {WIRE_PAGE_BYTES}")
+        require(rec["shipped"] == sum(-(-L // PAGE) for L in lens),
+                f"{name}: {rec['shipped']} pages shipped")
+        c = rec["counts"]
+        require(rec["routes"]["prefill_attention_paged"] == {
+            "wgmma": c["prefill_attention_paged"], "simt": 0}
+            and c["prefill_attention_paged"] > 0,
+            f"{name}: prefill routes {rec['routes']}")
+        require(rec["slices"]["decode"].get("decode_attention_paged", 0) > 0,
+                f"{name}: the decode slice launched no decode kernel")
+        require(not rec["slices"]["prefill"].get("decode_attention_paged"),
+                f"{name}: the prefill slice decoded")
+        if "wire" in rec:
+            w = rec["wire"]
+            require(w["pages"] == rec["shipped"] and not w["bad"],
+                    f"{name}: wire K/V {w['pages']} pages restored, "
+                    f"{len(w['bad'])} differ")
+            log(f"    wire K/V: {w['pages']} pages restored bit-equal to "
+                "the pages shipped")
+        runs[name] = rec
+        del dis
+        torch.cuda.empty_cache()
+    require(runs["pipelined"]["fingerprint"]
+            == runs["pipelined_replay"]["fingerprint"],
+            "seeded pipelined runs: fingerprints differ")
+    require(runs["pipelined"]["metrics"]["interconnect"]["flows"]
+            > runs["whole_group"]["metrics"]["interconnect"]["flows"],
+            "pipelining shipped no more flows than whole groups")
+    log("  every request of every run bit-equal to co-located; pipelined "
+        "fingerprints equal; xfer_bytes = pages x "
+        f"{WIRE_PAGE_BYTES} exactly")
+
+    # -- a planted wire fault must read in the K/V check ------------------
+    _, rec = _disagg_run(torch, params, prompts[:2], tenant=LS, plant_at=3)
+    w = rec["wire"]
+    require(w["planted"] and w["bad"] == w["planted"],
+            f"planted wire fault: planted {w['planted']}, caught {w['bad']}")
+    log(f"  planted fault (one bf16 exponent bit of wire page "
+        f"{w['planted'][0]} flipped after its CRC, verify off): caught, "
+        f"{len(w['bad'])} of {w['pages']} restored pages differ")
+    del params
+    torch.cuda.empty_cache()
+    log(f"  phase 11a wall {time.perf_counter() - t_phase:.1f}s")
+    return {k: {name: rec["counts"][k] for name, rec in runs.items()}
+            for k in ("decode_attention_paged", "prefill_attention_paged")}
+
+
+# the launcher's flag sets of phase 11b and the kernels each must launch
+LAUNCH_SETS = {
+    "paged_prefix_swap": (["--paged", "--use-flash", "--chunk-size", "8",
+                           "--prefix-cache", "--swap"], "paged"),
+    "dense": (["--use-flash", "--chunk-size", "8"], "dense"),
+    "online_coloring": (["--online", "--coloring", "--paged",
+                         "--use-flash"], "paged"),
+    "disagg": (["--disagg", "--use-flash", "--devices", "4",
+                "--prefill-devices", "2"], "paged"),
+    "sim": (["--backend", "sim"], None),
+    "trace": (["--trace", "TRACE", "--paged", "--use-flash"], "paged"),
+}
+LAUNCH_KERNELS = {"paged": ("decode_attention_paged",
+                            "prefill_attention_paged"),
+                  "dense": ("decode_attention", "prefill_attention")}
+
+
+def _tensors(x, fn):
+    """``x`` with ``fn`` applied to every tensor in it (tuples, lists and
+    dicts walked)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tensors(v, fn) for v in x)
+    if isinstance(x, dict):
+        return {k: _tensors(v, fn) for k, v in x.items()}
+    return x
+
+
+def _record_calls(names, into):
+    """Wrap the entry point ``ops.<name>`` of each of ``names`` (the one
+    the model layers call) so that every call keeps a copy of its inputs,
+    taken before the call (the pools change in place after it), and of
+    its output in ``into[name]``. Returns the function that unwraps."""
+    from repro_torch.kernels import ops
+    orig = {n: getattr(ops, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            keep = _tensors((args, kw), lambda t: t.detach().clone())
+            out = fn(*args, **kw)
+            into.setdefault(name, []).append(
+                (*keep, _tensors(out, lambda t: t.detach().clone())))
+            return out
+        return call
+    for n, fn in orig.items():
+        setattr(ops, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+    return undo
+
+
+def _check_calls(torch, calls, what):
+    """Hold every recorded launch's output against the plain version: the
+    same entry point on CPU copies of the same inputs, within TOL of the
+    output's dtype (a progress tensor, where there is one, exactly).
+    Returns {name: (calls, worst error, the shapes of q seen)}."""
+    from repro_torch.kernels import ops
+    res = {}
+    for name, recs in calls.items():
+        worst, shapes = 0.0, set()
+        for args, kw, out in recs:
+            want = getattr(ops, name)(*_tensors(args, lambda t: t.cpu()),
+                                      **_tensors(kw, lambda t: t.cpu()))
+            got, want = ((out, want) if isinstance(out, tuple)
+                         else ((out,), (want,)))
+            g, w = got[0].float().cpu(), want[0].float()
+            tol = TOL[str(got[0].dtype).split(".")[-1]]
+            err = (g - w).abs().max().item()
+            require(torch.allclose(g, w, rtol=tol, atol=tol),
+                    f"launcher {what}: {name} at q {tuple(args[0].shape)} "
+                    f"not within {tol} of its plain version (max abs {err})")
+            for a, b in zip(got[1:], want[1:]):
+                require(torch.equal(a.cpu(), b),
+                        f"launcher {what}: {name} progress {a.tolist()} != "
+                        f"{b.tolist()}")
+            worst = max(worst, err)
+            shapes.add(tuple(args[0].shape))
+        res[name] = (len(recs), worst, sorted(shapes))
+    return res
+
+
+def _served_tokens(eng):
+    """Every tenant's outputs in submit order, from the engine
+    ``serve.main`` returns (a ServingEngine or a DisaggregatedEngine)."""
+    if hasattr(eng, "prefill"):
+        return {t: eng.outputs(t) for t in eng.prefill.tenants}
+    return {t: [[int(x) for x in r.output]
+                for r in sorted(rt.done, key=lambda r: r.rid)]
+            for t, rt in eng.tenants.items()}
+
+
+def _launch(serve, argv):
+    """``serve.main(argv)`` with its standard output captured: (engine,
+    stdout, wall seconds)."""
+    import contextlib
+    import io
+    import torch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eng = serve.main(argv)
+    torch.cuda.synchronize()
+    return eng, buf.getvalue(), time.perf_counter() - t0
+
+
+def launcher_phase(torch):
+    """(b) ``repro_torch.launch.serve.main`` in-process with each flag set
+    of LAUNCH_SETS at its defaults (6 requests a tenant, LS qwen3-1.7b and
+    BE gemma2-9b smoke configs in f32 on the torch backend, the full
+    configs on sim). Every kernel launch of a run is held against its
+    plain version at the shapes the run gave it, and each ``--use-flash``
+    run's tokens against the same flags without it. Returns, by kernel,
+    each set's launches and the worst error over them."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs import schema
+    out_dir = ROOT / "build" / "phase11"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = str(out_dir / "trace.json")
+    res = {}
+    for name, (argv, path) in LAUNCH_SETS.items():
+        argv = [trace if a == "TRACE" else a for a in argv]
+        want_k = LAUNCH_KERNELS.get(path, ())
+        calls = {}
+        undo = _record_calls(want_k, calls)
+        ops.reset_launch_counts()
+        try:
+            eng, text, wall = _launch(serve, argv)
+        finally:
+            undo()
+        counts, routes = ops.launch_counts(), ops.route_counts()
+        m = json.JSONDecoder().raw_decode(text[text.index("{\n"):])[0]
+        if name == "disagg":
+            done = m["decode"]["_class"]["LS"]["completed"]
+            require(m["migrations"]["delivered"] == 6 and done == 6,
+                    f"launcher {name}: {m['migrations']}, {done} done")
+        else:
+            done = {c: m["_class"][c]["completed"] for c in ("LS", "BE")}
+            # on sim the LS stream completes; BE (gemma2-9b at full width,
+            # batch 8) is modeled over the launcher's horizon
+            want = {"LS": 6, "BE": 6} if path else {"LS": 6}
+            require(all(done[c] == n for c, n in want.items()),
+                    f"launcher {name}: completed {done}")
+        ran = {k: v for k, v in counts.items() if v}
+        require(set(ran) == set(want_k),
+                f"launcher {name}: launched {ran}, expected {want_k}")
+        for k in want_k:
+            if k in routes:
+                require(routes[k] == {"simt": counts[k], "wgmma": 0},
+                        f"launcher {name}: {k} routes {routes[k]} (f32 "
+                        "smoke configs take the CUDA-core body)")
+            require(len(calls.get(k, ())) == counts[k],
+                    f"launcher {name}: {len(calls.get(k, ()))} calls of "
+                    f"{k} recorded, {counts[k]} launched")
+        if name == "trace":
+            sbuf = io.StringIO()
+            with contextlib.redirect_stdout(sbuf):
+                rc = schema._main([trace + ".jsonl"])
+            require(rc == 0, "launcher trace: schema check failed")
+            log(f"  trace: {sbuf.getvalue().strip()}")
+        tail = [ln for ln in text.splitlines()
+                if ln and ln[0] not in " {}"]
+        log(f"  {name} ({' '.join(argv)}): {wall:.2f}s; completed {done}; "
+            f"launches {ran}; {tail}")
+        checked = _check_calls(torch, calls, name)
+        if name == "paged_prefix_swap":
+            # a planted fault: one output element of one recorded decode
+            # launch moved by 10x the tolerance must fail the check
+            k = want_k[0]
+            args, kw, out = calls[k][-1]
+            bad = out.clone()
+            bad.view(-1)[0] += 10 * TOL["float32"] * (1 + bad.view(-1)[0]
+                                                      .abs())
+            try:
+                _check_calls(torch, {k: [(args, kw, bad)]}, "planted")
+            except Check:
+                log(f"    planted fault (one {k} output element moved by "
+                    f"10x the tolerance): caught")
+            else:
+                raise Check("launcher: the kernel-vs-plain check misses a "
+                            "planted fault")
+        for k, (n, err, shapes) in checked.items():
+            log(f"    {k}: {n} launches within {TOL['float32']} of the "
+                f"plain version, max abs {err:.3e}; q shapes {shapes}")
+            row = res.setdefault(k, {"launches": {}, "max_abs_err": 0.0})
+            row["launches"][name] = n
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        if path:
+            # the same flags without --use-flash: the torch-op attention,
+            # no kernel, the same tokens
+            plain_argv = [trace + ".plain" if a == trace else a
+                          for a in argv if a != "--use-flash"]
+            ops.reset_launch_counts()
+            peng, _, pwall = _launch(serve, plain_argv)
+            require(not any(ops.launch_counts().values()),
+                    f"launcher {name} without --use-flash launched "
+                    f"{ops.launch_counts()}")
+            got, want = _served_tokens(eng), _served_tokens(peng)
+            for t in want:
+                for i, (u, v) in enumerate(zip(got[t], want[t])):
+                    require(u == v, f"launcher {name}: {t} request {i} "
+                                    f"{u} with the kernels, {v} without")
+            require(got.keys() == want.keys() and all(
+                len(got[t]) == len(want[t]) for t in want),
+                f"launcher {name}: requests differ with the kernels")
+            log(f"    tokens of {sum(map(len, got.values()))} requests "
+                f"equal to the run without --use-flash ({pwall:.2f}s)")
+            del peng
+        del eng
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=10,
+    ap.add_argument("--until", type=int, default=11,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all ten ran)")
+                         "lines are printed only when all eleven ran)")
     ap.add_argument("--from", dest="start", type=int, default=4,
-                    help="skip phases 4 to this one's predecessor "
+                    help="10 or 11: run phases 1-3 and that phase alone "
                          "(debugging; no result lines)")
     args = ap.parse_args()
 
@@ -2395,10 +2891,16 @@ def main():
     if args.until <= 3:
         return 1
     if args.start > 4:
-        if args.start <= 10:
+        if args.start == 10:
             log("== phase 10: KV hierarchy and fault plane, LS qwen3-1.7b "
                 "+ BE stablelm-1.6b, paged")
             hierarchy_phase(torch, args.seed)
+        elif args.start == 11:
+            log("== phase 11a: disaggregated prefill/decode, LS qwen3-1.7b,"
+                " paged")
+            disagg_phase(torch, args.seed)
+            log("== phase 11b: the launcher repro_torch.launch.serve")
+            launcher_phase(torch)
         log(f"== phases 4-{args.start - 1} skipped: no result lines")
         return 1
     log("== phase 4: qwen3-1.7b full width, paged prefill + decode")
@@ -2454,6 +2956,17 @@ def main():
         kres[name]["hierarchy_launches"] = hier_counts[name]
     kres["prefill_attention_paged"]["hierarchy_routes"] = hier_routes[
         "prefill_attention_paged"]
+
+    if args.until <= 10:
+        return 1
+    log("== phase 11a: disaggregated prefill/decode, LS qwen3-1.7b, paged "
+        "(co-located, pipelined x2, whole-group, 4 devices, planted fault)")
+    disagg_counts = disagg_phase(torch, args.seed)
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        kres[name]["disagg_launches"] = disagg_counts[name]
+    log("== phase 11b: the launcher repro_torch.launch.serve, in-process")
+    for name, row in launcher_phase(torch).items():
+        kres[name]["launcher"] = row
 
     launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
                                                 "prefill_attention_paged")},

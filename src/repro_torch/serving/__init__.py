@@ -1,3 +1,4 @@
+from .disagg import DisaggregatedEngine
 from .engine import Request, ServingEngine
 from .faults import (FAULT_KINDS, ColdPageCorrupt, FaultEvent, FaultPlane,
                      HostTierFault, safe_floor)

@@ -1,5 +1,7 @@
 """Continuous-batching multi-tenant serving engine on PyTorch/CUDA: the
-``repro.serving.engine.ServingEngine`` with a torch execution backend.
+``repro.serving.engine.ServingEngine`` with its two backends, real execution
+on a torch device (``backend="torch"``) and the contention simulator
+(``backend="sim"``), behind one API.
 
 Each tenant owns a fixed pool of decode slots; requests carry the phase
 state machine of :mod:`.scheduler` (``WAITING -> PREFILLING(pos) ->
@@ -83,11 +85,25 @@ recovery is charged to the tenant; each ``fault_budget`` points take the
 next rung of its ladder: ``flash_to_dense`` (its forwards rebuilt on the
 torch-op attention core), ``swap_to_preempt``, ``grow_to_full``.
 
+**Disaggregation seams** (:mod:`.disagg`): ``chunk_hook(rt, req)`` fires
+after each mid-prompt chunk commits (the prefill slice streams the pages it
+completed); ``migrate_hook(rt, req)`` fires when a still-live request's
+prompt completes and returns True to take it (the slot's pages are freed
+without a second donation and the request leaves this engine).
+
+**Simulator backend** (``backend="sim"``): the same ``submit`` stream drives
+the discrete-event contention simulator (:mod:`..core.simulator`) on the
+``device`` model under the compute ``policy``: each tenant's kernels are
+derived from its requests (prompt-sized prefill, chunked when
+``chunk_size`` is set, per-step decode whose KV-write term follows
+``paged``, the prefix-cache estimate, ``sim_swap_bytes``), and
+``run_until_idle(horizon=)`` writes the modeled completions back. It
+creates no tensor and compiles no kernel.
+
 PyTorch runs eagerly, so there is no compile step; pools and dense caches
-are updated in place. Not ported yet (``NotImplementedError``): the
-simulator backend; the disaggregation seams (``chunk_hook``,
-``migrate_hook``) stay ``None``; and the MLA, MoE, encoder and vision
-model families (``tf.check_supported``).
+are updated in place. The MLA, MoE, encoder and vision model families are
+not ported yet (``tf.check_supported`` raises ``NotImplementedError`` on
+the torch backend).
 """
 from __future__ import annotations
 
@@ -102,8 +118,10 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.coloring.allocator import (ColoredArena, OutOfColoredMemory,
                                        split_channels)
-from ..core.compute import LoadSignal
+from ..core.compute import ComputePolicy, LoadSignal
 from ..core.controller import ResourcePlan, measured_prefix_hit
+from ..core.simulator import (GPU_DEVICES, GPUSimulator, Kernel, Tenant,
+                              request_kernels)
 from ..core.tenancy import TenantSpec
 from ..models import transformer as tf
 from ..models.common import dt
@@ -218,6 +236,12 @@ class _TenantRT:
     flash: bool = False                     # current attention path
     swap_degraded: bool = False             # rung: swap-out -> preempt
     grow_degraded: bool = False             # rung: growth -> full extent
+    # sim-backend knobs / results
+    closed_loop: bool = False
+    sim_seq: Optional[int] = None
+    max_kernels: int = 24
+    sim_completed: int = 0
+    sim_swap_bytes: int = 0                 # modeled swap traffic per request
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.active)
@@ -717,6 +741,16 @@ class _TorchBackend:
             rt.prefix.donate(s, req.tokens, L)
         if len(req.output) >= max(req.max_new, 1) or rt.pos[s] >= eng.max_seq:
             self._finish(rt, s)
+        elif eng.migrate_hook is not None and eng.migrate_hook(rt, req):
+            # disaggregated handoff: the decode slice owns the request now;
+            # the hook serialized the page group, so only free the slot
+            # (the prefix donation above already happened: no second
+            # donation, and no local decode step runs for this request)
+            eng._trace_leave(rt, req, s, "decoding", "migrated")
+            self._drop_slot_pages(rt, s)
+            rt.active[s] = None
+            rt.pos[s] = 0
+            rt.last_tok[s] = 0
 
     def _prefill_monolithic(self, rt: _TenantRT, reqs: List[Request]) -> int:
         """Prompt processing for non-chunkable models: one batched
@@ -819,8 +853,13 @@ class _TorchBackend:
                         if c.start + Sq >= len(c.req.tokens)]
                 if done:
                     arg = logits[:, 0].argmax(dim=-1).cpu().numpy()
+                hook = eng.chunk_hook
                 for c in group:
                     c.req.prefill_pos = c.start + Sq
+                    if hook is not None and c.start + Sq < len(c.req.tokens):
+                        # mid-prompt commit: stream the newly completed KV
+                        # pages while the remaining chunks still run
+                        hook(rt, c.req)
                 for c in done:
                     self._seed_first_token(rt, c.req, int(arg[c.slot]))
             if eng.arrival_hook is not None:
@@ -965,7 +1004,7 @@ class _TorchBackend:
                     swap_out_pages=report.swap_out_pages)
         return progressed
 
-    def run_until_idle(self, max_steps: int = 100_000) -> int:
+    def run_until_idle(self, max_steps: int = 100_000, horizon=None) -> int:
         eng = self.engine
         n = stall = 0
         while n < max_steps:
@@ -983,11 +1022,147 @@ class _TorchBackend:
         return n
 
 
+class _SimBackend:
+    """Drives the discrete-event contention simulator with the engine's
+    request stream (pod-scale what-if: Figs. 5/6/11/12)."""
+
+    def __init__(self, engine: "ServingEngine", device="tpu-v5e",
+                 policy: str = "sgdrc"):
+        self.engine = engine
+        self.dev = GPU_DEVICES[device] if isinstance(device, str) else device
+        self.policy_kind = policy
+        self.result = None
+
+    def add_tenant(self, rt: _TenantRT):
+        pass   # kernel sequences are derived lazily from the request stream
+
+    def quantum(self, rt: _TenantRT) -> bool:
+        raise RuntimeError("sim backend executes via run_until_idle(horizon=)")
+
+    def run_until_idle(self, max_steps: int = 100_000, horizon=None) -> int:
+        eng = self.engine
+        plan = eng.plan
+        built = []
+        t_max = 0.0
+        for name, rt in eng.tenants.items():
+            pending = sorted(rt.queue, key=lambda r: r.t_submit)
+            arrivals = [r.t_submit for r in pending]
+            if arrivals:
+                t_max = max(t_max, arrivals[-1])
+            # explicit sim_seq keeps the scenario's pure-prefill modeling
+            # (fig12 etc.); stream-derived tenants split the request into a
+            # prompt-sized prefill plus per-step decode kernels, so the
+            # generated tokens are costed once, in the decode phase
+            steps = 0
+            if rt.sim_seq is not None:
+                S = rt.sim_seq
+            elif pending:
+                S = max(len(pending[0].tokens), 1)
+                steps = pending[0].max_new
+            else:
+                S = eng.max_seq
+            B = max(1, rt.spec.batch_size)
+            # prefix-cache: replay the stream through a token-only radix
+            # tree to estimate the mean cached-prefix length — the cost
+            # model then charges prefill traffic only for the uncached
+            # suffix (the bandwidth the sharing returns to the budget)
+            prefix_est = 0
+            if eng.prefix_cache and pending and rt.sim_seq is None:
+                est = PrefixCache(eng.page_size)
+                seen = []
+                for r in pending:
+                    seen.append(min(est.match_len(r.tokens),
+                                    max(len(r.tokens) - 1, 0)))
+                    est.insert_tokens(r.tokens)
+                prefix_est = int(np.mean(seen)) if seen else 0
+            # chunked-prefill modeling: with a chunk_size the prefill phase
+            # becomes one kernel per chunk (the simulator's preemption
+            # boundary, like the engine's quanta) and the cost model
+            # charges the per-chunk KV re-read + weight re-read tax
+            kern = request_kernels(rt.cfg, B, S, "prefill", self.dev,
+                                   rt.max_kernels, prefix=prefix_est,
+                                   chunk=eng.chunk_size,
+                                   tile=(eng.preempt_tile
+                                         if not rt.spec.is_ls else None))
+            n_prefill_k = len(kern)
+            # decode phase carries the KV-cache *write* traffic of the
+            # engine's actual decode path — paged appends are O(tokens);
+            # whole-row mask-scatter rewrites the window. Kept at (chunked)
+            # step granularity so the simulator can still preempt/readmit
+            # at decode-step boundaries, like the real engine's quanta.
+            if steps > 0:
+                dec = request_kernels(
+                    rt.cfg, B, S + steps, "decode", self.dev,
+                    rt.max_kernels,
+                    kv_write="paged" if eng.paged else "scatter")
+                f = sum(k.flops for k in dec)
+                b = sum(k.bytes for k in dec)
+                n_chunks = min(steps, max(1, rt.max_kernels))
+                per = steps / n_chunks
+                step_k = Kernel(f * per, b * per,
+                                b / self.dev.hbm_bw > f / self.dev.peak_flops)
+                kern = kern + [step_k] * n_chunks
+            if rt.sim_swap_bytes > 0:
+                # KV swap traffic modeled as one memory-bound kernel at the
+                # resume point (right after prefill): with coloring on, its
+                # bytes drain at the owning class's ch_be bandwidth split,
+                # so BE swap storms never stretch LS decode gaps
+                kern = (kern[:n_prefill_k]
+                        + [Kernel(0.0, float(rt.sim_swap_bytes), True)]
+                        + kern[n_prefill_k:])
+            tn = Tenant(name, rt.spec.priority, kern,
+                        arrivals=arrivals or None,
+                        closed_loop=rt.closed_loop,
+                        prefill_kernels=n_prefill_k if steps > 0 else None)
+            built.append((rt, pending, tn))
+        if horizon is None:
+            horizon = t_max * 1.05 + 1.0
+        sm_be = plan.sm_be if plan is not None else ComputePolicy().sm_be
+        policy = ComputePolicy(kind=self.policy_kind, sm_be=sm_be)
+        sim = GPUSimulator(self.dev, policy, coloring=eng.coloring,
+                           ch_be=eng.ch_be, controller=eng.controller,
+                           control_dt=eng.control_dt,
+                           migration_bytes=eng.migration_bytes,
+                           faults=eng.faults,
+                           tracer=(eng.tracer if eng.tracer.level >= 0
+                                   else None))
+        res = sim.run([tn for _, _, tn in built], horizon)
+        eng.migrated_bytes += sim.migrated_bytes
+        total = 0
+        for rt, pending, tn in built:
+            if tn.closed_loop:
+                rt.sim_completed = tn.completed
+                total += tn.completed
+                continue
+            for req, lat in zip(pending, tn.latencies):
+                req.t_done = req.t_submit + lat
+                req.output = []
+                rt.done.append(req)
+                rt.queue.remove(req)
+                eng._trace_done(rt, req)
+                total += 1
+        self.result = res
+        eng.sim_result = res
+        # virtual timelines all start at t=0, so across repeated drains the
+        # widest horizon is the serving window metrics() divides by
+        eng._elapsed = max(eng._elapsed or 0.0, res.horizon)
+        return total
+
+
 class ServingEngine:
     """The serving engine on a torch device. See module docstring.
 
     Parameters of note (the reference's names and defaults):
       max_seq      per-slot window cap (prompt + generated tokens).
+      backend      "torch" (real execution on ``torch_device``) or "sim"
+                   (the contention simulator; arrival times via
+                   ``submit(at=)``, completions via
+                   ``run_until_idle(horizon=)``).
+      device       DeviceSpec or name for the sim backend.
+      policy       ComputePolicy kind for the sim backend.
+      control_dt   sim backend: simulated seconds between control ticks.
+      migration_bytes  sim backend: memory-system stall charged per unit
+                   of ``ch_be`` a transition moves.
       plan         ResourcePlan; ``sm_be`` is BE's share of contended quanta,
                    ``prefill_budget`` caps BE prefill tokens per quantum,
                    ``ch_be`` sets the arena's LS/BE channel split.
@@ -1042,8 +1217,9 @@ class ServingEngine:
                    controller are both present, else off).
       safe_plan    the watchdog's target (default: the frontier's most
                    conservative entry, else ``faults.safe_floor(plan)``).
-      torch_device "cuda" (default) or "cpu". Raises if CUDA is asked for
-                   and absent.
+      torch_device "cuda" (default) or "cpu" on the torch backend. Raises
+                   if CUDA is asked for and absent. The sim backend creates
+                   no tensor and ignores it (``self.torch_device`` is None).
     """
 
     def __init__(self, max_seq: int = 128, *, backend: str = "torch",
@@ -1054,8 +1230,11 @@ class ServingEngine:
                  kv_pages: Optional[int] = None, use_flash: bool = False,
                  chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None, hit_aware: bool = True,
+                 device="tpu-v5e", policy: str = "sgdrc",
                  controller=None, control_interval: int = 4,
-                 prefix_cache: bool = False, prefix_min_hit: float = 0.0,
+                 control_dt: float = 0.02, prefix_cache: bool = False,
+                 prefix_min_hit: float = 0.0,
+                 migration_bytes: float = 0.0,
                  seed: int = 0, grow_pages: bool = False, swap: bool = False,
                  cold_dtype: str = "int8", swap_quantum_pages: int = 4,
                  faults: Optional[FaultPlane] = None,
@@ -1068,16 +1247,14 @@ class ServingEngine:
                  preempt_tile: Optional[int] = None,
                  arrival_hook=None, chunk_governor=None,
                  torch_device="cuda"):
-        if backend == "sim":
-            raise NotImplementedError("the simulator backend is not ported "
-                                      "yet")
-        if backend != "torch":
+        if backend not in ("torch", "sim"):
             raise ValueError(f"unknown backend {backend!r}")
-        if (grow_pages or swap) and not paged:
+        if (grow_pages or swap) and backend == "torch" and not paged:
             raise ValueError("grow_pages/swap require paged=True")
-        if prefix_cache and not paged:
+        if prefix_cache and backend == "torch" and not paged:
             raise ValueError("prefix_cache=True requires paged=True")
-        self.torch_device = resolve_device(torch_device)
+        self.torch_device = (resolve_device(torch_device)
+                             if backend == "torch" else None)
         self.backend_name = backend
         self.max_seq = max_seq
         # telemetry plane (obs): the engine always owns a tracer so emission
@@ -1101,8 +1278,11 @@ class ServingEngine:
         # construction-time default the tidal controller restores when a
         # plan stops carrying a swap_quantum_pages override (apply_plan)
         self._default_swap_quantum = self.swap_quantum_pages
-        # the disaggregation seams of the reference (serving.disagg) are
-        # not ported: nothing sets or reads them
+        # disaggregation seams (serving.disagg): chunk_hook(rt, req) fires
+        # after each mid-prompt chunk commits (the KV page-group stream
+        # overlaps the remaining prefill); migrate_hook(rt, req) fires when
+        # prefill completes on a still-live request and returns True to
+        # take the slot (the request leaves this engine)
         self.chunk_hook = None
         self.migrate_hook = None
         self.prefix_cache = prefix_cache
@@ -1125,13 +1305,18 @@ class ServingEngine:
                                if plan is not None else None),
             hit_aware=hit_aware, prefix_min_hit=prefix_min_hit)
         self.quantum_log: List[QuantumReport] = []
-        # bytes the arena's resplits moved (charged, never copied: the
-        # resplit is placement bookkeeping)
+        # resplit-aware migration costing: the torch backend accumulates the
+        # arena's moved-page bytes (charged, never copied: the resplit is
+        # placement bookkeeping); the sim backend charges migration_bytes *
+        # |d ch_be| of memory-system stall per transition
+        self.migration_bytes = migration_bytes
         self.migrated_bytes = 0
         self.tenants: Dict[str, _TenantRT] = {}
         self.clock = now_fn or time.perf_counter
+        self._t0 = self.clock()     # epoch for sim-backend virtual arrivals
         self._rid = 0
         self.plan = plan
+        self.coloring = coloring
         self.ch_be = plan.ch_be if plan is not None else ch_be
         # BE quantum share: fraction of engine quanta BE receives while LS
         # work is pending (None/0 -> strict LS priority)
@@ -1141,6 +1326,7 @@ class ServingEngine:
         # controller makes the plan time-varying at step boundaries
         self.controller = controller
         self.control_interval = max(int(control_interval), 1)
+        self.control_dt = control_dt
         # fault plane (module docstring): fault_recovery gates every
         # recovery path at once (off = the naive ablation: blind retries,
         # no watchdog, no shedding, unverified cold pages)
@@ -1175,11 +1361,15 @@ class ServingEngine:
         self._tie_rng = np.random.default_rng(seed)
         self._tie_rank: Dict[str, float] = {}
         self._step_idx = 0
+        self.sim_result = None
         self._elapsed = None
         self._last_window = None
         self.arena = None
-        self.backend = _TorchBackend(self)
-        if coloring:
+        if backend == "torch":
+            self.backend = _TorchBackend(self)
+        else:
+            self.backend = _SimBackend(self, device=device, policy=policy)
+        if coloring and backend == "torch":
             assert hash_model is not None
             self.arena = ColoredArena(arena_bytes, hash_model.channel_of,
                                       hash_model.num_channels,
@@ -1189,23 +1379,29 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def add_tenant(self, spec: TenantSpec, cfg: ModelConfig, params=None,
-                   seed: Optional[int] = None, n_slots: Optional[int] = None):
-        """Register a tenant. ``params`` (the port's param tree, e.g. from
-        ``bridge.params_from_numpy``) is moved to the engine's device in
-        the activation dtype; ``None`` draws random weights from ``seed``
-        (default: a crc32 of the tenant's name)."""
-        tf.check_supported(cfg)
-        act = dt(cfg.activation_dtype)
-        if params is None:
-            params = tf.init_params(
-                cfg, seed if seed is not None
-                else zlib.crc32(spec.name.encode()),
-                device=self.torch_device, dtype=act)
-        else:
-            params = tf.tree_map(
-                lambda a: a.to(self.torch_device,
-                               act if a.is_floating_point() else a.dtype),
-                params)
+                   seed: Optional[int] = None, n_slots: Optional[int] = None,
+                   closed_loop: bool = False, sim_seq: Optional[int] = None,
+                   max_kernels: int = 24, sim_swap_bytes: int = 0):
+        """Register a tenant. Torch backend: ``params`` (the port's param
+        tree, e.g. from ``bridge.params_from_numpy``) is moved to the
+        engine's device in the activation dtype; ``None`` draws random
+        weights from ``seed`` (default: a crc32 of the tenant's name). Sim
+        backend: no weights; ``closed_loop``, ``sim_seq``, ``max_kernels``
+        and ``sim_swap_bytes`` shape the tenant's modeled kernel stream."""
+        if self.backend_name == "torch":
+            tf.check_supported(cfg)
+            act = dt(cfg.activation_dtype)
+            if params is None:
+                params = tf.init_params(
+                    cfg, seed if seed is not None
+                    else zlib.crc32(spec.name.encode()),
+                    device=self.torch_device, dtype=act)
+            else:
+                params = tf.tree_map(
+                    lambda a: a.to(self.torch_device,
+                                   act if a.is_floating_point()
+                                   else a.dtype),
+                    params)
         n_slots = n_slots or (self.slots_ls if spec.is_ls else self.slots_be)
         row_bytes = chans = None
         if self.arena is not None:
@@ -1222,7 +1418,9 @@ class ServingEngine:
                     raise OutOfColoredMemory(
                         f"{spec.name}: arena cannot hold one KV row")
                 n_slots = min(n_slots, int(cap))
-        rt = _TenantRT(spec, cfg, params, n_slots=n_slots)
+        rt = _TenantRT(spec, cfg, params, n_slots=n_slots,
+                       closed_loop=closed_loop, sim_seq=sim_seq,
+                       max_kernels=max_kernels, sim_swap_bytes=sim_swap_bytes)
         self.backend.add_tenant(rt)
         self._tie_rank[spec.name] = float(self._tie_rng.random())
         if self.arena is not None and not self.paged:
@@ -1236,12 +1434,15 @@ class ServingEngine:
 
     def submit(self, tenant: str, tokens, max_new: int = 8, at=None,
                deadline: Optional[float] = None):
-        """Queue a request. ``at`` overrides the submit timestamp.
+        """Queue a request. ``at`` overrides the submit timestamp (virtual
+        arrival time for the sim backend's scenario traces); sim-backend
+        submissions without ``at`` default to engine-epoch-relative time.
         ``deadline`` is in clock units after submit: an expired request
         still WAITING/SWAPPED is load-shed instead of served late (a
         recovery path: no-op when ``fault_recovery`` is off). Malformed
         input raises (unknown tenant: KeyError; empty / non-1-D prompt:
-        ValueError); an oversized prompt or a full per-tenant queue
+        ValueError); an oversized prompt (torch backend only: the sim
+        backend cost-models arbitrary shapes) or a full per-tenant queue
         (``max_queue``) is *rejected* — the request finishes immediately
         with ``failed=rejected=True``."""
         if tenant not in self.tenants:
@@ -1251,11 +1452,17 @@ class ServingEngine:
         if toks.ndim != 1 or toks.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
         self._rid += 1
-        t = float(at) if at is not None else self.clock()
+        if at is not None:
+            t = float(at)
+        elif self.backend_name == "sim":
+            t = self.clock() - self._t0
+        else:
+            t = self.clock()
         req = Request(self._rid, tenant, toks, max_new, t,
                       deadline=(t + float(deadline)
                                 if deadline is not None else None))
-        if toks.size > self.max_seq or len(rt.queue) >= self.max_queue:
+        oversize = toks.size > self.max_seq and self.backend_name != "sim"
+        if oversize or len(rt.queue) >= self.max_queue:
             req.failed = req.rejected = True
             req.phase = Phase.FINISHED
             req.t_done = t
@@ -1607,13 +1814,15 @@ class ServingEngine:
         class. LS strictly preempts BE at this boundary when no plan grants
         BE a share. With an online controller or chunk governor attached
         this boundary is also where re-plans land."""
-        if self.controller is not None or self.chunk_governor is not None:
+        if (self.controller is not None or self.chunk_governor is not None) \
+                and self.backend_name == "torch":
             self._maybe_control()
         ls = [rt for rt in self.tenants.values()
               if rt.spec.is_ls and rt.has_work()]
         be = [rt for rt in self.tenants.values()
               if not rt.spec.is_ls and rt.has_work()]
-        if self.watchdog_quanta and self.fault_recovery:
+        if (self.watchdog_quanta and self.fault_recovery
+                and self.backend_name == "torch"):
             self._watchdog(bool(ls))
         if ls and be and self.sm_be > 0:
             # deficit counter: BE receives sm_be of contended quanta
@@ -1652,21 +1861,32 @@ class ServingEngine:
         c = {"LS": [0, 0], "BE": [0, 0]}       # [completed, tokens]
         for rt in self.tenants.values():
             served = [r for r in rt.done if not r.failed]
-            c[rt.spec.priority][0] += len(served)
+            c[rt.spec.priority][0] += len(served) + rt.sim_completed
             c[rt.spec.priority][1] += sum(len(r.output or ()) for r in served)
         return c
 
-    def run_until_idle(self, max_steps: int = 100_000) -> int:
-        """Run quanta until no tenant has work (returns #quanta). Each call
-        is one serving window: its rates land in ``metrics()['_window']``,
-        next to the cumulative rollup."""
+    def run_until_idle(self, max_steps: int = 100_000, horizon=None) -> int:
+        """Torch backend: run quanta until no tenant has work (returns
+        #quanta). Sim backend: build tenants from the submitted stream, run
+        the simulator over ``horizon`` and write completions back (returns
+        #completed requests; the raw SimResult lands in
+        ``self.sim_result``). Each call is one serving window: its rates
+        land in ``metrics()['_window']``, next to the cumulative rollup."""
         t0 = self.clock()
         before = self._class_counts()
-        n = self.backend.run_until_idle(max_steps=max_steps)
-        win = self.clock() - t0
-        self._elapsed = (self._elapsed or 0.0) + win
+        mig0 = self.migrated_bytes
+        n = self.backend.run_until_idle(max_steps=max_steps, horizon=horizon)
+        if self.backend_name == "torch":
+            win = self.clock() - t0
+            self._elapsed = (self._elapsed or 0.0) + win
+        else:
+            # this drain's virtual horizon (cumulative _elapsed keeps the
+            # widest horizon, set by the sim backend)
+            win = self.sim_result.horizon if self.sim_result else 0.0
         after = self._class_counts()
-        self._last_window = {"elapsed_s": win}
+        self._last_window = {"elapsed_s": win,
+                             "migrated_bytes": int(self.migrated_bytes
+                                                   - mig0)}
         for pri in ("LS", "BE"):
             done = after[pri][0] - before[pri][0]
             toks = after[pri][1] - before[pri][1]
@@ -1694,7 +1914,7 @@ class ServingEngine:
             lats = [r.latency for r in served if r.latency is not None]
             ttfts = [r.ttft for r in served if r.ttft is not None]
             out[name] = {
-                "completed": len(served),
+                "completed": len(served) + rt.sim_completed,
                 "failed": len(rt.done) - len(served),
                 **self._pcts(lats),
                 "ttft": self._pcts(ttfts),
@@ -1739,7 +1959,7 @@ class ServingEngine:
             c["done"] += lats
             c["ttft"] += ttfts
             c["tbt"] += rt.tbt_gaps
-            c["completed"] += len(served)
+            c["completed"] += len(served) + rt.sim_completed
             c["tokens"] += sum(len(r.output or ()) for r in served)
             if rt.spec.slo_ms is not None:
                 c["slo_n"] += len(lats)

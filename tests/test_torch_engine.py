@@ -225,6 +225,7 @@ def test_port_never_imports_jax_or_reference():
     bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert bad == []
     code = ("import sys; import repro_torch, repro_torch.serving.engine, "
+            "repro_torch.serving.disagg, repro_torch.launch.serve, "
             "repro_torch.kernels.ops, repro_torch.bridge; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
@@ -253,8 +254,9 @@ def test_engine_runs_on_cuda_unless_asked_for_cpu():
 def test_unported_options_raise(opt):
     """The KV hierarchy and the fault plane are ported: each option builds
     a paged engine, and the hierarchy's options raise ValueError without
-    ``paged=True``, as the reference's do. The simulator backend is not
-    ported and raises with any of them."""
+    ``paged=True`` on the torch backend, as the reference's do on its real
+    backend. The simulator backend is ported and takes each of them (it
+    models the hierarchy and needs no page pool)."""
     from repro_torch.serving import FaultPlane
     value = FaultPlane([]) if opt == "faults" else True
     eng = ServingEngine(torch_device="cpu", paged=True, **{opt: value})
@@ -262,13 +264,16 @@ def test_unported_options_raise(opt):
     if opt != "faults":
         with pytest.raises(ValueError, match="paged=True"):
             ServingEngine(torch_device="cpu", **{opt: value})
-    with pytest.raises(NotImplementedError):
-        ServingEngine(torch_device="cpu", backend="sim", paged=True,
-                      **{opt: value})
+    for paged in (True, False):
+        sim = ServingEngine(torch_device="cpu", backend="sim", paged=paged,
+                            **{opt: value})
+        assert sim.backend_name == "sim" and getattr(sim, opt) is value
 
 
 def test_unknown_or_unported_backend_raises():
-    with pytest.raises(NotImplementedError):
-        ServingEngine(torch_device="cpu", backend="sim")
+    """The simulator backend is ported; "jax" is the reference's backend
+    name and an unknown one here."""
+    assert ServingEngine(torch_device="cpu",
+                         backend="sim").backend_name == "sim"
     with pytest.raises(ValueError):
         ServingEngine(torch_device="cpu", backend="jax")
