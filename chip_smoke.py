@@ -157,8 +157,43 @@ non-zero:
              equal to the same flags' run without it (which launches no
              kernel), and the trace's JSONL passes
              ``repro_torch.obs.schema``.
+12. families — (a) phase 5's LS qwen3-1.7b tenant (its weights and
+             prompts) beside BE moonshot-v1-16b-a3b at the reference's
+             config (48 layers, d_model 2048, MHA 16 x 128, 64 experts
+             top-6, 2 shared, expert width 1408, 1 dense layer, vocab
+             163840, bf16, 28.39 B parameters; the published Moonlight
+             model has 27 MLA layers and 16 B), paged, page 16, max_seq 2048, chunk 256,
+             8 slots a tenant, sm_be 0.3, flash, 8 BE prompts of 512-1536
+             tokens, 32 new tokens: a timed run (every request completes,
+             every prefill on "wgmma"; printed: wall, quanta, both
+             classes' TTFT/TBT p50/p99 and tokens/s, the MoE dropped_frac
+             per prefill call, the wall of each BE decode step, the peak
+             memory), then the same run with every kernel launch held
+             against its plain version on the card on copies of its inputs
+             taken at the call (a planted fault caught) and its tokens
+             equal to the timed run's. (b) one MoE layer at moonshot's
+             width, T = 8 x 256, bf16: top-k indices, keep masks and
+             positions equal to ``moe_forward_plain``'s (which shares no
+             code with the layer), drops present,
+             each token's output within MOE_REL_TOL (relative L2), a kept
+             slot's gate zeroed read above it. (c) deepseek-v2-236b at full
+             width, MLA_LAYERS deep (1 dense + 3 MoE layers), LS alone, 4
+             slots, paged then dense with the same weights: tokens
+             bit-equal, no kernel launched, the latent pool at (512 + 64)
+             x 2 B a token a layer. (d) whisper-small whole and
+             llama-3.2-vision-90b one period (4 global + 1 cross layer), f32,
+             TF32 off: ``forward`` against 16 ``decode_step(use_flash)``
+             calls, each dense decode_attention launch (H 12 / D 64; H 64
+             / Hkv 8 / D 128) held against its plain version at the call:
+             whisper's first decoder layer (its cross block over the whole
+             encoder) and llama's first global and first cross layer
+             within 2e-3; the whole decoder a smoke of finite logits, its
+             distance printed, not held (a random-weight stack amplifies
+             rounding, the reference's too: 2.90 for whisper-small on the
+             CPU).
+             Each part starts from freed memory and prints its peak.
 
-Launch counts of phases 5, 6, 6b, 7, 8a, 8c, 9, 10 and 11 are read with the
+Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9-12 are read with the
 counters set to 0 just before each phase drives its path (phases 7 and 8a
 count their drive, before their checks and timings). The next-to-last line
 is one JSON object with every kernel's launches and times (phase 3's f32
@@ -166,10 +201,11 @@ rows of the four engine kernels under "float32", with phase 6b's launches;
 phase 9's runs under "tidal_launches", phase 10's (a)-(c) under
 "hierarchy_launches" and phase 11a's runs under "disagg_launches" of the
 two paged rows, phase 11b's launches by flag set and their worst error
-under "launcher" of the four engine kernels' rows); the last line is the
-device JSON. ``--from 10`` and
-``--from 11`` run phases 1-3 and that phase alone, ``--until N`` stops
-after phase N (no result lines either way).
+under "launcher" of the four engine kernels' rows, phase 12's under
+"families_launches" of rows 1-3); the last line is the device JSON.
+``--from 10``, ``--from 11`` and ``--from 12`` run phases 1-3 and that
+phase alone, ``--until N`` stops after phase N (no result lines either
+way).
 """
 from __future__ import annotations
 
@@ -2841,15 +2877,675 @@ def launcher_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the MoE, MLA, encoder and vision families
+# ---------------------------------------------------------------------------
+
+# 12a: BE moonshot-v1-16b-a3b at the reference's config; cut to 4 slots (not
+# in depth) should the peak pass 75 GiB
+FAMILY_BE_SLOTS = 8
+FAMILY_PEAK_GIB = 75
+# 12b: one MoE layer, bf16, the batched layer against its per-expert plain
+# version: the worst token's L2 error over the mean token norm. Both run
+# bf16 GEMMs with f32 accumulation and round h and the expert output to
+# bf16 (2^-9 relative each); they differ only where the two GEMM shapes
+# round differently, a few 2^-9 at most: 2^-6 leaves 4x over 2^-8. The
+# same measure of either against the f32 layer is printed beside it.
+MOE_REL_TOL = 2 ** -6
+# 12c: deepseek-v2-236b's first dense layer and 3 MoE layers
+MLA_LAYERS = 4
+# 12d: forward against the decode_step loop, the reference's own
+# tests/test_models_smoke.py tolerance (f32, TF32 off)
+FAMILY_FWD_TOL = 2e-3
+FAMILY_DECODE_STEPS = 16
+
+
+def _free(torch):
+    """Release what earlier parts left on the card and restart the peak."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _plain_on_card(fn, args, kw):
+    """The plain version of one kernel call, on the card: the entry point
+    ``fn`` of ``kernels.ops`` run down its CPU branch (the plain PyTorch
+    version in ``kernels/ref.py``) on the same CUDA tensors. At the
+    engine's full-width shapes the CPU could not keep up with every
+    launch."""
+    from repro_torch.kernels import ops
+    on_cpu = ops._on_cpu
+    ops._on_cpu = lambda t: True
+    try:
+        return fn(*args, **kw)
+    finally:
+        ops._on_cpu = on_cpu
+
+
+def _head_rel(torch, g, w, Hkv):
+    """Relative L2 error of an attention output ([B, (Sq,) H, D]) per
+    (batch row, KV head): [B, Hkv]."""
+    B, H, D = g.shape[0], g.shape[-2], g.shape[-1]
+
+    def blocks(x):
+        return x.reshape(B, -1, Hkv, H // Hkv * D).transpose(1, 2) \
+            .reshape(B, Hkv, -1)
+    dn, wn = (blocks(g) - blocks(w)).norm(dim=2), blocks(w).norm(dim=2)
+    # a block the plain version leaves at exactly 0 (a free slot's row
+    # over never-written pages) must be exactly 0 in the kernel too
+    return torch.where(wn > 0, dn / wn.clamp_min(1e-30),
+                       torch.where(dn > 0, float("inf"), 0.0))
+
+
+def _call_err(torch, out, want, Hkv, what):
+    """One launch's output against its plain version by relative L2 per
+    (batch row, KV head) within LATE_REL_TOL (phases 3 and 7's limits). A
+    model's real activations are not TOL's N(0, 1) inputs: the
+    reference's init scales wq/wk by the head count's fan-in, so scores
+    reach ~150 at whisper-small's heads and values ~25, and f32 rounding
+    of such scores alone moves an output element by ~1e-4, and bf16's
+    rounding of P by 0.25-0.5 at moonshot's. A progress tensor must be
+    equal. Returns (max abs error, worst relative L2)."""
+    got, want = ((out, want) if isinstance(out, tuple)
+                 else ((out,), (want,)))
+    g, w = got[0].float(), want[0].float()
+    dname = str(got[0].dtype).split(".")[-1]
+    err = (g - w).abs().max().item()
+    rel = _head_rel(torch, g, w, Hkv).max().item()
+    require(rel <= LATE_REL_TOL[dname],
+            f"{what}: relative L2 {rel} per (row, KV head) over "
+            f"{LATE_REL_TOL[dname]} against its plain version (max abs "
+            f"{err})")
+    for a, b in zip(got[1:], want[1:]):
+        require(torch.equal(a, b), f"{what}: progress {a.tolist()} != "
+                                   f"{b.tolist()}")
+    return err, rel
+
+
+def _check_at_call(torch, names, stats):
+    """Wrap ``ops.<name>`` for each of ``names``: every call copies its
+    inputs at the call, launches the kernel, and holds the output against
+    the plain version on those copies on the card, within TOL
+    (``_call_err``). ``stats[name]`` collects the calls, the worst error
+    and the q shapes seen; ``stats["_last"]`` keeps the last call of each
+    kernel (copies) for the planted fault. Returns the function that
+    unwraps."""
+    from repro_torch.kernels import ops
+    orig = {n: getattr(ops, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            keep = _tensors((args, kw), lambda t: t.detach().clone())
+            out = fn(*args, **kw)
+            want = _plain_on_card(fn, *keep)
+            err, rel = _call_err(torch, out, want, args[1].shape[1],
+                                 f"{name} at q {tuple(args[0].shape)}")
+            st = stats.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
+                                         "rel": 0.0, "q": set()})
+            st["calls"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["rel"] = max(st["rel"], rel)
+            st["q"].add(tuple(args[0].shape))
+            stats.setdefault("_last", {})[name] = (fn, keep, _tensors(
+                out, lambda t: t.detach().clone()))
+            return out
+        return call
+    for n, fn in orig.items():
+        setattr(ops, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+    return undo
+
+
+def _planted_call_fault(torch, stats, name):
+    """One recorded output with its largest (batch row, KV head) block
+    scaled by 1.1 (a wrong-scale fault) must fail ``_call_err``."""
+    fn, (args, kw), out = stats["_last"][name]
+    want = _plain_on_card(fn, args, kw)
+    outs = list(out) if isinstance(out, tuple) else [out]
+    Hkv = args[1].shape[1]
+    bad = outs[0].clone()
+    B, H, D = bad.shape[0], bad.shape[-2], bad.shape[-1]
+    w = (want[0] if isinstance(want, tuple) else want).float()
+    norms = w.reshape(B, -1, Hkv, H // Hkv * D).square().sum((1, 3))
+    b, h = divmod(int(norms.argmax()), Hkv)
+    G = H // Hkv
+    bad.view(B, -1, H, D)[b, :, h * G:(h + 1) * G] *= 1.1
+    outs[0] = bad
+    try:
+        _call_err(torch, tuple(outs) if isinstance(out, tuple) else bad,
+                  want, Hkv, "planted")
+    except Check:
+        return
+    raise Check(f"the kernel-vs-plain check misses a planted fault in "
+                f"{name}")
+
+
+def _moe_drops(into):
+    """Wrap ``models.moe.moe_forward`` so each call's (tokens, S,
+    dropped_frac) lands in ``into``, the fraction as a device tensor (no
+    host sync). Returns the function that unwraps."""
+    from repro_torch.models import moe
+    orig = moe.moe_forward
+
+    def call(p, x, cfg):
+        y, aux = orig(p, x, cfg)
+        into.append((x.shape[0] * x.shape[1], x.shape[1],
+                     aux["dropped_frac"]))
+        return y, aux
+    moe.moe_forward = call
+
+    def undo():
+        moe.moe_forward = orig
+    return undo
+
+
+def _family_pair(torch, seed, *, be_slots, ls_params=None, be_params=None,
+                 check=False, decode_ms=None, drops=None):
+    """Phase 5's LS tenant (qwen3-1.7b, its seed) and BE moonshot-v1-16b-a3b
+    at the reference's config (seed + 1) on one paged engine: page 16,
+    max_seq 2048, chunk 256, 8 LS slots, ``be_slots`` BE slots,
+    ``ResourcePlan(sm_be=0.3)``, the flash kernels; phase 5's LS prompts
+    and 8 BE prompts of 512-1536 tokens, 32 new tokens each. ``check``
+    holds every launch against its plain version at the call;
+    ``decode_ms`` collects the wall ms of each BE decode step (synchronized
+    after), ``drops`` each MoE layer call's dropped_frac. Returns (engine,
+    requests, LS params, BE params, stats)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(max_seq=2048, paged=True, page_size=PAGE,
+                        use_flash=True, chunk_size=256, slots_ls=8,
+                        slots_be=be_slots, plan=_engine_plan(),
+                        torch_device="cuda")
+    t0 = time.perf_counter()
+    ls = eng.add_tenant(TenantSpec("ls-qwen3", "LS"),
+                        get_config("qwen3-1.7b"), params=ls_params, seed=seed)
+    be = eng.add_tenant(TenantSpec("be-moonshot", "BE"),
+                        get_config("moonshot-v1-16b-a3b"), params=be_params,
+                        seed=seed + 1)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if decode_ms is not None:
+        inner = be.decode_fn
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+        be.decode_fn = timed
+    rng = np.random.default_rng(seed + 7)           # phase 5's lengths
+    ls_lens = [int(x) for x in rng.integers(128, 1025, 8)]
+    be_lens = [int(x) for x in rng.integers(512, 1537, 8)]
+    rng = np.random.default_rng(seed)               # phase 5's tokens
+    reqs = [eng.submit("ls-qwen3", rng.integers(0, ls.cfg.vocab_size, L),
+                       max_new=32) for L in ls_lens]
+    reqs += [eng.submit("be-moonshot", rng.integers(0, be.cfg.vocab_size, L),
+                        max_new=32) for L in be_lens]
+    stats = {}
+    undo = [_moe_drops(drops)] if drops is not None else []
+    if check:
+        undo.append(_check_at_call(torch, ("decode_attention_paged",
+                                           "prefill_attention_paged"),
+                                   stats))
+    t0 = time.perf_counter()
+    try:
+        quanta = eng.run_until_idle()
+        torch.cuda.synchronize()
+    finally:
+        for u in undo:
+            u()
+    stats["wall_s"] = time.perf_counter() - t0
+    stats["setup_s"] = setup
+    stats["quanta"] = quanta
+    for r in reqs:
+        require(not r.failed and r.output is not None
+                and len(r.output) == 32,
+                f"request {r.rid} ({r.tenant}, {len(r.tokens)} tokens): "
+                f"{None if r.output is None else len(r.output)} tokens")
+    return eng, reqs, ls.params, be.params, stats
+
+
+def _profile_be_decode(torch, eng, rt, steps=3):
+    """Where a BE decode step's time goes: ``steps`` batched decode steps of
+    the tenant after its run, every slot at the engine's write sentinel
+    (a free slot's row: the whole window read, nothing written), timed
+    unprofiled, then profiled (device time by kernel name)."""
+    from repro_torch.models import transformer as tf
+    B = rt.n_slots
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), eng.backend._write_sentinel(rt),
+                     dtype=torch.int32, device="cuda")
+    ctx = {"page_table": rt.kv.device_page_table()}
+
+    def run():
+        with torch.inference_mode():
+            for _ in range(steps):
+                tf.decode_step(rt.params, rt.cfg, tok, rt.cache, pos,
+                               ctx_extra=ctx, use_flash=True)
+        torch.cuda.synchronize()
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    log(f"  {steps} BE decode steps at 8 sentinel rows: "
+        f"{wall * 1e3 / steps:.1f} ms a step unprofiled")
+    with _profiler(torch) as prof:
+        run()
+    _profile_summary(prof, wall, top=12)
+
+
+def _pcts_line(c):
+    return (f"TTFT p50/p99 {c['ttft']['p50_ms']:.1f}/"
+            f"{c['ttft']['p99_ms']:.1f} ms, TBT p50/p99 "
+            f"{c['tbt']['p50_ms']:.1f}/{c['tbt']['p99_ms']:.1f} ms, "
+            f"{c['tokens_per_s']} tokens/s, {c['completed']} completed")
+
+
+def family_engine_phase(torch, seed):
+    """(a) LS qwen3-1.7b + BE moonshot-v1-16b-a3b at full width: a timed
+    run, then the same run with every kernel launch held against its plain
+    version at the call; tokens equal across the two. Returns the timed
+    run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kv_cache import kv_bytes_per_token
+    cfg = get_config("moonshot-v1-16b-a3b")
+    slots = FAMILY_BE_SLOTS
+    _free(torch)
+    decode_ms, drops = [], []
+    ops.reset_launch_counts()
+    eng, reqs, ls_p, be_p, st = _family_pair(
+        torch, seed, be_slots=slots, decode_ms=decode_ms, drops=drops)
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    peak = _peak_gib(torch)
+    n_params = sum(t.numel() for t in _leaves(be_p))
+    log(f"  BE moonshot-v1-16b-a3b: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+        f"{cfg.moe.num_shared_experts} shared, expert width "
+        f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}: {n_params:,} "
+        f"parameters ({n_params * 2 / 1e9:.1f} GB bf16); KV "
+        f"{kv_bytes_per_token(cfg)} B a token; {slots} BE slots")
+    log(f"  tenants ready in {st['setup_s']:.1f}s; run: {st['quanta']} "
+        f"quanta in {st['wall_s']:.2f}s; peak "
+        f"max_memory_allocated {peak:.2f} GiB")
+    require(peak <= FAMILY_PEAK_GIB or slots == 4,
+            f"peak {peak:.1f} GiB over {FAMILY_PEAK_GIB}: cut BE to 4 slots")
+    m = eng.metrics()
+    for c in ("LS", "BE"):
+        log(f"  {c}: " + _pcts_line(m["_class"][c]))
+    quanta = {"LS": 0, "BE": 0}
+    for _, _, pri in eng.events:
+        quanta[pri] += 1
+    log(f"  quanta by class {quanta}; launches {counts}; prefill routes "
+        f"{routes['prefill_attention_paged']}")
+    require(counts["decode_attention_paged"] > 0
+            and counts["prefill_attention_paged"] > 0,
+            f"paged kernels not launched: {counts}")
+    require(routes["prefill_attention_paged"] == {
+        "wgmma": counts["prefill_attention_paged"], "simt": 0},
+        f"prefill routes {routes['prefill_attention_paged']}")
+    n_moe = cfg.num_layers - cfg.n_prefix
+    require(len(drops) % n_moe == 0, f"{len(drops)} MoE calls")
+    per_call = [(drops[i][0], drops[i][1],
+                 float(sum(d[2] for d in drops[i:i + n_moe])) / n_moe)
+                for i in range(0, len(drops), n_moe)]
+    pre = [f"{S}:{f:.4f}" for T, S, f in per_call if S > 1]
+    log(f"  MoE dropped_frac, mean over the {n_moe} MoE layers, per "
+        f"prefill call (chunk length:fraction; {len(pre)} calls of "
+        f"{per_call[0][0] // per_call[0][1]} rows): {' '.join(pre)}; "
+        f"decode calls: max "
+        f"{max(f for T, S, f in per_call if S == 1):.4f}")
+    bd = sorted(decode_ms)
+    log(f"  BE decode step (wall, synchronized): {len(bd)} steps, p50 "
+        f"{_p50(bd):.1f} ms, max {bd[-1]:.1f} ms")
+    _profile_be_decode(torch, eng, eng.tenants["be-moonshot"])
+    toks = _outputs(reqs)
+    del eng, reqs
+    # the same run, every launch held against its plain version
+    _free(torch)
+    ops.reset_launch_counts()
+    eng, reqs, _, _, cst = _family_pair(torch, seed, be_slots=slots,
+                                        ls_params=ls_p, be_params=be_p,
+                                        check=True)
+    require(ops.launch_counts() == counts,
+            f"checked run launched {ops.launch_counts()}, timed {counts}")
+    require(_outputs(reqs) == toks, "checked run's tokens differ from the "
+                                    "timed run's")
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        s = cst[name]
+        require(s["calls"] == counts[name],
+                f"{name}: {s['calls']} checked, {counts[name]} launched")
+        _planted_call_fault(torch, cst, name)
+        log(f"  {name}: {s['calls']} launches each within relative L2 "
+            f"{LATE_REL_TOL['bfloat16']} per (row, KV head) of its plain "
+            f"version on copies of its inputs: worst {s['rel']:.3e}, max "
+            f"abs {s['max_abs_err']:.3e}; q shapes "
+            f"{sorted(s['q'])[:4]}{'...' if len(s['q']) > 4 else ''}; a "
+            f"planted fault (the largest (row, KV head) block scaled by "
+            f"1.1) caught")
+    log(f"  checked run: {cst['wall_s']:.2f}s, tokens equal to the timed "
+        f"run's; peak {_peak_gib(torch):.2f} GiB")
+    del eng, reqs, ls_p, be_p
+    _free(torch)
+    return {k: counts[k] for k in ("decode_attention_paged",
+                                   "prefill_attention_paged")}
+
+
+def _outputs(reqs):
+    return [[int(t) for t in r.output] for r in reqs]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def moe_layer_phase(torch, seed):
+    """(b) one MoE layer at moonshot's width (64 experts top-6, 2 shared,
+    expert width 1408), T = 8 rows x 256 tokens, bf16, capacity factor
+    1.25: the batched layer against ``moe_forward_plain`` on the card.
+    The tokens share one component (a residual stream's common part, a
+    quarter of their own standard-normal one): it skews the random router
+    as trained routers are skewed, so experts overflow (~10% of slots at
+    seed 0); independent tokens alone load each expert ~192 +- 14 slots
+    against a capacity of 240 and drop none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_map
+    cfg = get_config("moonshot-v1-16b-a3b")
+    _free(torch)
+    # bf16 leaves, the router too: the engine holds it as the reference's
+    # cast_tree gives it to the layer
+    p = tree_map(lambda a: a.to(torch.bfloat16),
+                 moe.init_moe(seed, "phase12b", cfg, torch.bfloat16, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((8, 256, cfg.d_model), generator=g, device="cuda")
+         + 0.25 * torch.randn((cfg.d_model,), generator=g, device="cuda")) \
+        .to(torch.bfloat16)
+    T = x.shape[0] * x.shape[1]
+    y, aux = moe.moe_forward(p, x, cfg)
+    r = moe.route(p, x, cfg)
+    yp, auxp, rp = moe.moe_forward_plain(p, x, cfg)
+    require(torch.equal(r.idx, rp.idx) and torch.equal(r.keep, rp.keep)
+            and torch.equal(r.pos, rp.pos),
+            "batched routing differs from the plain version's")
+    # f32 gates: a sum of six probabilities in another order
+    gerr = (r.gates - rp.gates).abs().max().item()
+    require(gerr <= 1e-6, f"gates off the plain version's by {gerr}")
+    n_drop = int((~r.keep).sum())
+    require(n_drop > 0, "no slot dropped at capacity factor 1.25")
+    require(abs(float(aux["dropped_frac"]) - float(auxp["dropped_frac"]))
+            <= 1e-6, "dropped_frac differs")
+
+    def rel(a, b):
+        a, b = a.float().reshape(T, -1), b.float().reshape(T, -1)
+        return ((a - b).norm(dim=1).max() / b.norm(dim=1).mean()).item()
+    err = rel(y, yp)
+    # the f32 rounding scale: the plain layer in f32 on the same values
+    p32 = tree_map(lambda a: a.float(), p)
+    y32, _, _ = moe.moe_forward_plain(p32, x.float(), cfg, routing=rp)
+    log(f"  T {T}, capacity {r.C}, {n_drop} of {r.keep.numel()} slots "
+        f"dropped (dropped_frac {float(aux['dropped_frac']):.4f}); top-k "
+        f"indices, positions and keep masks equal to the plain version's "
+        f"(argmax rounds, a per-expert loop), gates within {gerr:.1e}")
+    log(f"  output vs plain, worst token's L2 error / mean token norm "
+        f"{err:.3e} (limit "
+        f"{MOE_REL_TOL:.3e}); bf16 vs the f32 layer: batched "
+        f"{rel(y, y32):.3e}, plain {rel(yp, y32):.3e}")
+    require(err <= MOE_REL_TOL, f"MoE layer off its plain version: {err}")
+    kept = torch.nonzero(rp.keep)[:, 0]
+    slot = int(kept[rp.gates[kept].argmax()])
+    bad = rp._replace(gates=rp.gates.clone().index_fill_(
+        0, torch.tensor([slot], device="cuda"), 0.0))
+    yb, _, _ = moe.moe_forward_plain(p, x, cfg, routing=bad)
+    ferr = rel(y, yb)
+    require(ferr > MOE_REL_TOL, f"planted fault reads {ferr}")
+    log(f"  planted fault (kept slot {slot}'s gate "
+        f"{float(rp.gates[slot]):.3f} zeroed): rel L2 {ferr:.3e}, caught")
+    ms = cuda_ms(lambda: moe.moe_forward(p, x, cfg), iters=5, warmup=1)
+    pms = cuda_ms(lambda: moe.moe_forward_plain(p, x, cfg), iters=3,
+                  warmup=1)
+    log(f"  moe_forward {ms:.2f} ms, moe_forward_plain {pms:.2f} ms "
+        f"(device, back to back); peak {_peak_gib(torch):.2f} GiB")
+    del p, p32, x
+    _free(torch)
+
+
+def mla_phase(torch, seed):
+    """(c) deepseek-v2-236b at full width, MLA_LAYERS deep, served as LS
+    alone, paged then dense with the same weights: tokens bit-equal, no
+    kernel launched, the latent pool's bytes a token a layer."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.kv_cache import kv_bytes_per_token
+    cfg = get_config("deepseek-v2-236b").replace(num_layers=MLA_LAYERS)
+    m = cfg.mla
+    _free(torch)
+    rng = np.random.default_rng(seed + 17)
+    lens = [int(x) for x in rng.integers(128, 1025, 4)]
+    prompts = [rng.integers(0, cfg.vocab_size, L) for L in lens]
+    outs, params = {}, None
+    for paged in (True, False):
+        eng = ServingEngine(max_seq=2048, paged=paged, page_size=PAGE,
+                            use_flash=True, chunk_size=256, slots_ls=4,
+                            torch_device="cuda")
+        t0 = time.perf_counter()
+        ls = eng.add_tenant(TenantSpec("ls-deepseek", "LS"), cfg,
+                            params=params, seed=seed + 3)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        if params is None:
+            params = ls.params
+            n = sum(t.numel() for t in _leaves(params))
+            log(f"  deepseek-v2-236b, {cfg.num_layers} of 60 layers (1 "
+                f"dense + {cfg.num_layers - 1} MoE), d_model {cfg.d_model}"
+                f", {cfg.num_heads} heads, kv_lora {m.kv_lora_rank}, rope "
+                f"{m.qk_rope_head_dim}, {cfg.moe.num_experts} experts "
+                f"top-{cfg.moe.top_k}: {n:,} parameters "
+                f"({n * 2 / 1e9:.1f} GB bf16); prompts {lens}")
+        if paged:
+            per = kv_bytes_per_token(cfg) // cfg.num_layers
+            want = (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+            pool = sum(t.numel() * t.element_size()
+                       for t in _leaves(ls.cache))
+            tok = ls.kv.n_pages * PAGE * cfg.num_layers
+            require(per == want and pool == want * tok,
+                    f"latent pool {pool} B for {tok} token-layers, "
+                    f"kv_bytes_per_token/layer {per}; want {want}")
+            log(f"  latent pool: {pool:,} B = {ls.kv.n_pages} pages x "
+                f"{PAGE} x {cfg.num_layers} layers x {want} B "
+                f"((512 + 64) x 2)")
+        reqs = [eng.submit("ls-deepseek", p, max_new=16) for p in prompts]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        require(not launched, f"MLA launched kernels {launched}")
+        for r in reqs:
+            require(not r.failed and r.output is not None
+                    and len(r.output) == 16, f"request {r.rid} failed")
+        outs[paged] = _outputs(reqs)
+        c = eng.metrics()["_class"]["LS"]
+        log(f"  {'paged' if paged else 'dense'}: set-up {setup:.1f}s, "
+            f"{n} quanta in {wall:.2f}s, no kernel launched; "
+            + _pcts_line(c) + f"; peak {_peak_gib(torch):.2f} GiB")
+        del eng, ls, reqs
+    require(outs[True] == outs[False],
+            "deepseek tokens differ between paged and dense")
+    log(f"  tokens of {len(prompts)} requests bit-equal, paged and dense")
+    del params
+    _free(torch)
+
+
+def _decode_loop(torch, params, cfg, batch, ctx, stats):
+    """``decode_step(use_flash=True)`` over the batch's tokens from an empty
+    dense cache, every decode_attention launch held against its plain
+    version at the call (``_check_at_call``, into ``stats``). Returns
+    (logits [B, S, V], launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    S = batch["tokens"].shape[1]
+    cache = tf.init_cache(cfg, batch["tokens"].shape[0], S, device="cuda")
+    undo = _check_at_call(torch, ("decode_attention",), stats)
+    ops.reset_launch_counts()
+    try:
+        steps = []
+        for t in range(S):
+            logits, cache = tf.decode_step(
+                params, cfg, batch["tokens"][:, t:t + 1], cache,
+                torch.tensor(t, device="cuda"), ctx_extra=ctx,
+                use_flash=True)
+            steps.append(logits[:, 0])
+    finally:
+        undo()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    n_attn = sum(1 for k in cfg.pattern if k == "global")
+    require(launched == {"decode_attention": n_attn * S},
+            f"{cfg.name}: launched {launched}, want {n_attn * S} "
+            "decode_attention")
+    return torch.stack(steps, 1), n_attn * S
+
+
+def _first_layers(tf, params, cfg):
+    """The checked cut: the first global layer and, for the VLM, its first
+    cross layer (pattern ("global", "cross")); whisper's first decoder
+    layer comes with its first cross block over the whole encoder."""
+    slots = [0] + ([cfg.layer_pattern.index("cross")]
+                   if "cross" in cfg.layer_pattern else [])
+    p = dict(params, layers={f"s{i}": tf.tree_map(
+        lambda a: a[:1], params["layers"][f"s{j}"])
+        for i, j in enumerate(slots)})
+    if "cross" in params:
+        p["cross"] = tf.tree_map(lambda a: a[:1], params["cross"])
+    pattern = tuple(cfg.layer_pattern[j] for j in slots)
+    return p, cfg.replace(num_layers=len(slots), layer_pattern=pattern)
+
+
+def context_phase(torch, seed):
+    """(d) whisper-small whole (12 + 12 layers) and llama-3.2-vision-90b at
+    published width, one period (4 global + 1 cross layer), both f32:
+    ``forward`` against the ``decode_step(use_flash=True)`` loop, each
+    dense decode_attention launch held against its plain version at the
+    call. The checked cut (``_first_layers``: whisper's first decoder
+    layer with its cross block over the whole encoder, llama's first
+    global layer and its first cross layer over the image features)
+    within FAMILY_FWD_TOL. The whole decoder is a smoke of finite logits
+    only: a random-weight stack amplifies rounding past any fixed limit
+    (the reference's init scales wq/wk by the head count's fan-in, so
+    scores reach 100-1000 and the softmax is near-argmax; whisper-small's
+    logits move by ~3 under a 1e-6 change of its embedding, the
+    reference's too), so its distance from ``forward`` is printed, not
+    held. Returns the launches by model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import io, transformer as tf
+    out = {}
+    for name, layers in (("whisper-small", None),
+                         ("llama-3.2-vision-90b", 5)):
+        _free(torch)
+        cfg = get_config(name).replace(activation_dtype="float32")
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, seed + 5, "cuda", torch.float32)
+        for slot in params["layers"].values():
+            if "gate" in slot["attn"]:
+                slot["attn"]["gate"].fill_(0.5)   # tanh(0) would hide it
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        batch = io.make_batch(cfg, 1, FAMILY_DECODE_STEPS, g,
+                              with_labels=False)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        ctx = tf._context(params, cfg, batch)
+        n_launch = 0
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        for checked, (p, c) in ((True, _first_layers(tf, params, cfg)),
+                                (False, (params, cfg))):
+            full, _ = tf.forward(p, c, batch)
+            stats = {}
+            dec, n = _decode_loop(torch, p, c, batch, ctx, stats)
+            n_launch += n
+            st = stats["decode_attention"]
+            require(st["calls"] == n, f"{st['calls']} of {n} checked")
+            _planted_call_fault(torch, stats, "decode_attention")
+            err = (dec - full).abs().max().item()
+            require(bool(torch.isfinite(dec).all())
+                    and dec.shape == full.shape,
+                    f"{name}, {c.pattern}: decode_step logits not finite")
+            if checked:
+                require(err <= FAMILY_FWD_TOL,
+                        f"{name}, {c.pattern}: decode_step loop off "
+                        f"forward by {err} (limit {FAMILY_FWD_TOL})")
+            what = c.pattern if checked else c.num_layers
+            log(f"  {name}, decoder layers {what}"
+                + (f" + {cfg.encoder.num_layers} encoder over "
+                   f"{cfg.encoder.num_frames} frames" if cfg.encoder else
+                   f", {cfg.vision.num_tokens} image tokens of "
+                   f"{cfg.vision.vision_dim}")
+                + f", f32: forward vs {FAMILY_DECODE_STEPS} decode steps "
+                f"max abs {err:.2e} "
+                + (f"(limit {FAMILY_FWD_TOL}, the reference's)" if checked
+                   else "(finite; not held: the random-weight stack "
+                        "amplifies rounding)")
+                + f"; {n} decode_attention launches at H {H} Hkv {Hkv} D "
+                f"{D}, each within relative L2 {LATE_REL_TOL['float32']} "
+                f"per (row, KV head) of its plain version: worst "
+                f"{st['rel']:.2e}, max abs {st['max_abs_err']:.2e}; a "
+                f"planted fault caught")
+            del full, dec, stats
+        log(f"  {name}: set-up {setup:.1f}s; peak {_peak_gib(torch):.2f} "
+            "GiB")
+        out[name] = n_launch
+        del params, ctx, batch
+    _free(torch)
+    return out
+
+
+def families_phase(torch, seed):
+    """Phase 12, (a)-(d). Returns (launches of (a) by kernel, (d)'s
+    decode_attention launches by model)."""
+    t0 = time.perf_counter()
+    log("  -- (a) LS qwen3-1.7b + BE moonshot-v1-16b-a3b, paged, flash")
+    pair = family_engine_phase(torch, seed)
+    log("  -- (b) one MoE layer at moonshot's width vs moe_forward_plain")
+    moe_layer_phase(torch, seed)
+    log("  -- (c) deepseek-v2-236b MLA, LS alone, paged then dense")
+    mla_phase(torch, seed)
+    log("  -- (d) whisper-small and llama-3.2-vision-90b, forward vs decode")
+    ctx = context_phase(torch, seed)
+    log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
+    return pair, ctx
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=11,
+    ap.add_argument("--until", type=int, default=12,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all eleven ran)")
+                         "lines are printed only when all twelve ran)")
     ap.add_argument("--from", dest="start", type=int, default=4,
-                    help="10 or 11: run phases 1-3 and that phase alone "
+                    help="10, 11 or 12: run phases 1-3 and that phase alone "
                          "(debugging; no result lines)")
     args = ap.parse_args()
 
@@ -2901,6 +3597,9 @@ def main():
             disagg_phase(torch, args.seed)
             log("== phase 11b: the launcher repro_torch.launch.serve")
             launcher_phase(torch)
+        elif args.start == 12:
+            log("== phase 12: the MoE, MLA, encoder and vision families")
+            families_phase(torch, args.seed)
         log(f"== phases 4-{args.start - 1} skipped: no result lines")
         return 1
     log("== phase 4: qwen3-1.7b full width, paged prefill + decode")
@@ -2967,6 +3666,16 @@ def main():
     log("== phase 11b: the launcher repro_torch.launch.serve, in-process")
     for name, row in launcher_phase(torch).items():
         kres[name]["launcher"] = row
+
+    if args.until <= 11:
+        return 1
+    log("== phase 12: the MoE, MLA, encoder and vision families (BE "
+        "moonshot-v1-16b-a3b at full width, one MoE layer, deepseek-v2 "
+        "MLA, whisper-small and llama-3.2-vision)")
+    fam_pair, fam_ctx = families_phase(torch, args.seed)
+    for name, n in fam_pair.items():
+        kres[name]["families_launches"] = {"moonshot-v1-16b-a3b BE": n}
+    kres["decode_attention"]["families_launches"] = fam_ctx
 
     launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
                                                 "prefill_attention_paged")},

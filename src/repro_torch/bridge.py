@@ -2,9 +2,15 @@
 as numpy arrays (``jax.tree.map(np.asarray, tree)`` on the caller's side)
 become tensors with the same structure — ``embed``, ``final_ln``, optional
 ``unembed``, the ``prefix`` list and the ``layers`` leaves stacked
-``[n_periods, ...]`` for params; the same dicts of ``k``/``v`` leaves for
-dense caches ``[.., B, Hkv, S, Dh]`` and page pools ``[.., n_pages, Hkv,
-page, Dh]``. :func:`to_numpy` goes the other way.
+``[n_periods, ...]`` for params (MoE layers' ``moe`` with its f32
+``router``, ``experts`` ``w_gate``/``w_up`` ``[E, D, F]`` and ``w_down``
+``[E, F, D]``, optional ``shared``; MLA layers' ``attn`` with ``wq_a``,
+``q_ln``, ``wq_b``, ``wkv_a``, ``kv_ln``, ``wk_b``, ``wv_b``, ``wo``;
+whisper's ``encoder`` and ``cross``); the same dicts of ``k``/``v``
+leaves for dense caches ``[.., B, Hkv, S, Dh]`` and page pools ``[..,
+n_pages, Hkv, page, Dh]``, and of MLA's ``ckv``/``krope`` latents ``[..,
+B, S, R]`` and ``[.., n_pages, page, R]``. :func:`to_numpy` goes the
+other way.
 """
 from __future__ import annotations
 

@@ -1,5 +1,8 @@
-"""GQA attention blocks (qk-norm, logit softcap, local windows) over dense
-and paged KV caches: the GQA half of ``repro.models.attention`` in PyTorch.
+"""Attention blocks (``repro.models.attention`` in PyTorch): GQA (qk-norm,
+logit softcap, local windows) and MLA (DeepSeek-V2 latent attention,
+absorbed-matmul decode over a compressed latent cache) over dense and
+paged caches, and cross-attention (whisper's decoder, the VLM's image
+layers).
 
 Full-sequence paths use a grouped einsum (no KV-head repeat). The cached
 paths keep the reference's ``use_flash`` seam: when it is set and the layer
@@ -12,7 +15,11 @@ buffers): the functions still return the caches, which are the tensors they
 were given. A write the reference drops (``.at[...].set(mode="drop")`` or an
 out-of-window position) is filtered out before the write, since an
 out-of-range index on CUDA is a device assert, not a drop.
-MLA and cross-attention are not ported yet.
+
+MLA and cross-attention take no kernel, as in the reference (its MLA entry
+points take ``**_`` and ignore ``use_flash``): their products are torch
+ops. Where the reference asks for f32 products of bf16 operands
+(``preferred_element_type``), the operands are upcast first.
 """
 from __future__ import annotations
 
@@ -43,6 +50,43 @@ def init_gqa(seed, path, cfg, dtype, device, lead=()):
         p["q_gamma"] = torch.zeros(lead + (Dh,), dtype=dtype, device=device)
         p["k_gamma"] = torch.zeros(lead + (Dh,), dtype=dtype, device=device)
     return p
+
+
+def init_mla(seed, path, cfg, dtype, device, lead=()):
+    m, D, H = cfg.mla, cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    lead = tuple(lead)
+
+    def w(name, shape):
+        # the reference's fan-in is shape[-2]: H for wq_b/wk_b/wv_b
+        return dense_init(seed, f"{path}/{name}", lead + shape, dtype, device,
+                          fan_in=shape[-2])
+
+    zeros = lambda n: torch.zeros(lead + (n,), dtype=dtype, device=device)
+    return {
+        "wq_a": w("wq_a", (D, m.q_lora_rank)),
+        "q_ln": zeros(m.q_lora_rank),
+        "wq_b": w("wq_b", (m.q_lora_rank, H, qk)),
+        "wkv_a": w("wkv_a", (D, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_ln": zeros(m.kv_lora_rank),
+        "wk_b": w("wk_b", (m.kv_lora_rank, H, m.qk_nope_head_dim)),
+        "wv_b": w("wv_b", (m.kv_lora_rank, H, m.v_head_dim)),
+        "wo": w("wo", (H, m.v_head_dim, D)),
+    }
+
+
+def init_cross_attn(seed, path, cfg, kv_dim, dtype, device, lead=()):
+    D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = tuple(lead)
+
+    def w(name, shape):
+        return dense_init(seed, f"{path}/{name}", lead + shape, dtype, device,
+                          fan_in=shape[-2])
+
+    return {"wq": w("wq", (D, H, Dh)), "wk": w("wk", (kv_dim, Hkv, Dh)),
+            "wv": w("wv", (kv_dim, Hkv, Dh)), "wo": w("wo", (H, Dh, D)),
+            # the VLM's tanh gate on the residual
+            "gate": torch.zeros(lead, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -154,21 +198,26 @@ def _decode_core(q, cache_k, cache_v, positions, cfg, layer_kind, x_dtype,
     return out.reshape(B, Sq, H, Dh).to(x_dtype)
 
 
-def _chunk_scatter(cache_k, cache_v, k, v, pos):
-    """Write a contiguous Sq-token chunk of keys and values (k, v:
-    [B,Sq,Hkv,Dh]) into the caches' sequence axis (axis 2 of
-    [B,Hkv,Smax,Dh]) at per-row start positions ``pos`` [B], in place.
-    Entries whose positions fall outside the window write nothing, so a
-    sentinel ``pos >= Smax`` masks a row out of the batched call entirely
-    (the reference's drop-out-of-range contract). One host sync (the entry
-    filter) serves both caches."""
-    Smax, Sq = cache_k.shape[2], k.shape[1]
-    idx = pos.long()[:, None] + torch.arange(Sq, device=k.device)[None]
+def _at_seq(t, first, s):
+    """The index of ``t`` at ``first`` on axis 0 and ``s`` on the sequence
+    axis, which is -2 in every cache and pool leaf (GQA [.., Hkv, S, Dh],
+    MLA [.., S, R])."""
+    return (first,) + (slice(None),) * (t.dim() - 3) + (s,)
+
+
+def _chunk_scatter(cache_a, cache_b, a, b, pos):
+    """Write a contiguous Sq-token chunk (a, b: [B,Sq,...]: GQA keys and
+    values, or MLA latents) into the caches' sequence axis at per-row start
+    positions ``pos`` [B], in place. Entries whose positions fall outside
+    the window write nothing, so a sentinel ``pos >= Smax`` masks a row
+    out of the batched call entirely (the reference's drop-out-of-range
+    contract). One host sync (the entry filter) serves both caches."""
+    Smax, Sq = cache_a.shape[-2], a.shape[1]
+    idx = pos.long()[:, None] + torch.arange(Sq, device=a.device)[None]
     rows, cols = ((idx >= 0) & (idx < Smax)).nonzero(as_tuple=True)
     s = idx[rows, cols]
-    # (rows, :, s) selects [n, Hkv, Dh]
-    cache_k[rows, :, s] = k[rows, cols].to(cache_k.dtype)
-    cache_v[rows, :, s] = v[rows, cols].to(cache_v.dtype)
+    cache_a[_at_seq(cache_a, rows, s)] = a[rows, cols].to(cache_a.dtype)
+    cache_b[_at_seq(cache_b, rows, s)] = b[rows, cols].to(cache_b.dtype)
 
 
 def gqa_decode(p, x, cfg, cache_k, cache_v, pos, *, layer_kind="global",
@@ -233,15 +282,15 @@ def _page_lookup(page_table, positions, ps, n_pages):
     return phys, off
 
 
-def _page_write(k_pages, v_pages, phys, off, k, v):
-    """{k,v}_pages[phys, :, off, :] = k, v for every (row, token) whose
-    ``phys`` is a real page, in place; sentinel entries (``>= n_pages``)
-    write nothing. k, v: [B,Q,Hkv,Dh]. One host sync (the entry filter)
-    serves both pools."""
-    rows, cols = (phys < k_pages.shape[0]).nonzero(as_tuple=True)
+def _page_write(pages_a, pages_b, phys, off, a, b):
+    """pages[phys, .., off, :] = a, b for every (row, token) whose ``phys``
+    is a real page, in place; sentinel entries (``>= n_pages``) write
+    nothing. a, b: [B,Q,...] (GQA keys and values, or MLA latents). One
+    host sync (the entry filter) serves both pools."""
+    rows, cols = (phys < pages_a.shape[0]).nonzero(as_tuple=True)
     p, o = phys[rows, cols], off[rows, cols]
-    k_pages[p, :, o] = k[rows, cols].to(k_pages.dtype)
-    v_pages[p, :, o] = v[rows, cols].to(v_pages.dtype)
+    pages_a[_at_seq(pages_a, p, o)] = a[rows, cols].to(pages_a.dtype)
+    pages_b[_at_seq(pages_b, p, o)] = b[rows, cols].to(pages_b.dtype)
 
 
 def _paged_window(pages, page_table):
@@ -304,3 +353,174 @@ def gqa_prefill_paged(p, x, cfg, k_pages, v_pages, page_table, pos, *,
                            _paged_window(v_pages, page_table), positions,
                            cfg, layer_kind, x.dtype)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, x, cfg, positions):
+    m = cfg.mla
+    ql = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_ln"],
+                  cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", ql, p["wq_b"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg, positions):
+    m = cfg.mla
+    kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv = rms_norm(kv[..., :m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope[..., 0, :]                  # [B,S,R], [B,S,rope]
+
+
+def mla_forward(p, x, cfg, *, positions=None, causal=True, **_):
+    """Full-sequence MLA with expanded keys/values: the rope sub-dim is
+    folded into per-head keys so the grouped attention core applies."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    # rescale so the core's 1/sqrt(d) matches MLA's
+    d_eff = m.qk_nope_head_dim + m.qk_rope_head_dim
+    ratio = (d_eff ** -0.5) / (q_full.shape[-1] ** -0.5)
+    if abs(ratio - 1.0) > 1e-9:
+        q_full = q_full * ratio
+    mask = causal_mask(S, S, device=x.device) if causal else None
+    out = grouped_attention(q_full, k_full, v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope, positions):
+    """Absorbed-matmul attention over a dense latent window. cache_ckv:
+    [B,S,R]; cache_krope: [B,S,rope]; positions: [B,Sq] — each query row
+    attends to latents at positions <= its own. Scores and the latent
+    output are f32 products of the (upcast) operands."""
+    m = cfg.mla
+    Smax = cache_ckv.shape[1]
+    q_eff = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(),
+                           cache_ckv.float())
+              + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
+                             cache_krope.float())) * scale
+    valid = (torch.arange(Smax, device=x.device)[None, None, :]
+             <= positions[:, :, None])[:, None]          # [B,1,Sq,S]
+    w = _masked_softmax(scores, valid)
+    o_latent = torch.einsum("bhqs,bsr->bqhr",
+                            w.to(cache_ckv.dtype).float(), cache_ckv.float())
+    out = torch.einsum("bqhr,rhn->bqhn", o_latent.to(x.dtype), p["wv_b"])
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_decode(p, x, cfg, cache_ckv, cache_krope, pos, **_):
+    """Absorbed-matmul MLA decode against the compressed latent cache
+    (cache_ckv: [B,Smax,R]; cache_krope: [B,Smax,rope]). A scalar ``pos``
+    writes every row at ``pos`` when it is in range (the reference's
+    guarded ``dynamic_update_slice``), a vector ``pos`` each row at its own
+    position, dropping rows out of range: both leave the same cache.
+    Returns (out [B,1,D], cache_ckv, cache_krope)."""
+    B = x.shape[0]
+    Smax = cache_ckv.shape[1]
+    pos_t = torch.as_tensor(pos, device=x.device)
+    positions = pos_t.reshape(-1).expand(B)[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    if pos_t.dim() == 0:
+        p0 = int(pos_t)
+        if 0 <= p0 < Smax:
+            cache_ckv[:, p0] = c_kv[:, 0].to(cache_ckv.dtype)
+            cache_krope[:, p0] = k_rope[:, 0].to(cache_krope.dtype)
+    else:
+        _chunk_scatter(cache_ckv, cache_krope, c_kv, k_rope,
+                       positions[:, 0])
+    return (_mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope,
+                      positions), cache_ckv, cache_krope)
+
+
+def mla_prefill_step(p, x, cfg, cache_ckv, cache_krope, pos, **_):
+    """Cached-context chunked MLA prefill: the Sq-token chunk's latents go
+    into the dense latent window at per-row start positions ``pos`` [B],
+    then each query attends to its own latent prefix. Returns (out
+    [B,Sq,D], caches)."""
+    B, Sq, _ = x.shape
+    positions = pos[:, None] + torch.arange(Sq, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    _chunk_scatter(cache_ckv, cache_krope, c_kv, k_rope, pos)
+    return (_mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope,
+                      positions), cache_ckv, cache_krope)
+
+
+def _mla_paged(p, x, cfg, ckv_pages, krope_pages, page_table, positions):
+    """The paged MLA step for appends at ``positions`` [B,Sq]: one (page,
+    offset) latent row per token (unmapped entries drop), then attention
+    over each row's gathered window of P * page_size tokens."""
+    B = x.shape[0]
+    n_pages, ps, R = ckv_pages.shape
+    P = page_table.shape[1]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    phys, off = _page_lookup(page_table, positions, ps, n_pages)
+    _page_write(ckv_pages, krope_pages, phys, off, c_kv, k_rope)
+    pt = torch.clamp(page_table.long(), 0, n_pages - 1)
+    ckv = ckv_pages[pt].reshape(B, P * ps, R)
+    krope = krope_pages[pt].reshape(B, P * ps, krope_pages.shape[-1])
+    return (_mla_core(p, x, cfg, q_nope, q_rope, ckv, krope, positions),
+            ckv_pages, krope_pages)
+
+
+def mla_decode_paged(p, x, cfg, ckv_pages, krope_pages, page_table, pos,
+                     **_):
+    """Paged MLA decode: the latent cache lives in a shared page pool
+    (ckv_pages: [n_pages, page_size, R]; krope_pages: [n_pages, page_size,
+    rope]; page_table: [B, P], entries >= n_pages unmapped). Returns (out
+    [B,1,D], pools)."""
+    B = x.shape[0]
+    positions = torch.as_tensor(pos, device=x.device).reshape(-1) \
+        .expand(B)[:, None]
+    return _mla_paged(p, x, cfg, ckv_pages, krope_pages, page_table,
+                      positions)
+
+
+def mla_prefill_paged(p, x, cfg, ckv_pages, krope_pages, page_table, pos,
+                      **_):
+    """Cached-context chunked MLA prefill against the paged latent pool:
+    Sq latent appends per row at start positions ``pos`` [B]. Returns
+    (out [B,Sq,D], pools)."""
+    Sq = x.shape[1]
+    positions = pos[:, None] + torch.arange(Sq, device=x.device)[None, :]
+    return _mla_paged(p, x, cfg, ckv_pages, krope_pages, page_table,
+                      positions)
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec / VLM)
+# ---------------------------------------------------------------------------
+
+def cross_attn_forward(p, x, kv_feats, cfg, gated=False):
+    """x: [B,S,D]; kv_feats: [B,T,kv_dim] (encoder output / patch
+    embeddings). ``gated`` scales the output by ``tanh(gate)`` (in f32,
+    then cast)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    kv = kv_feats.to(x.dtype)
+    k = torch.einsum("btd,dhk->bthk", kv, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", kv, p["wv"])
+    out = grouped_attention(q, k, v, mask=None, cap=cfg.attn_logit_softcap)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if gated:
+        out = torch.tanh(p["gate"].float()).to(out.dtype) * out
+    return out

@@ -1,8 +1,12 @@
-"""The decoder model of ``repro.models.transformer`` in PyTorch, for the
-pure-attention GQA configs (``stablelm-1.6b``, ``qwen3-1.7b``, ``gemma2``,
-``nemotron``), the SSM family (``rwkv6-7b``) and the hybrid family
-(``zamba2-1.2b``: mamba2 layers and a shared GQA attention block). MLA,
-MoE, encoder and vision models raise ``NotImplementedError``.
+"""The unified model of ``repro.models.transformer`` in PyTorch, for every
+config of ``ARCHS``: the GQA decoders (``stablelm-1.6b``, ``qwen3-1.7b``,
+``gemma2``, ``nemotron``), the MoE family (``moonshot-v1-16b-a3b``: GQA
+with MoE MLPs after a dense prefix; ``deepseek-v2-236b``: MLA and MoE), the
+SSM family (``rwkv6-7b``), the hybrid family (``zamba2-1.2b``: mamba2
+layers and a shared GQA attention block), the encoder-decoder
+(``whisper-small``: a non-causal encoder, cross-attention after each
+decoder layer) and the VLM (``llama-3.2-vision-90b``: gated
+cross-attention layers over image features).
 
 Entry points:
     init_params(cfg, seed, device, dtype)   -> params dict
@@ -13,6 +17,13 @@ Entry points:
     prefill_step(params, cfg, tokens, cache, pos, ctx_extra) -> (logits, cache)
     prefill(params, cfg, batch, max_seq)    -> (logits_last, cache)
 
+Encoder and vision models take their context in ``batch`` (``frames`` or
+``enc_out``; ``vision``) for :func:`forward` and :func:`prefill`, and in
+``ctx_extra`` for :func:`decode_step`. MoE configs' :func:`forward`
+returns the reference's aux dict (``z_loss``, ``lb_loss``,
+``dropped_frac``, each summed over the layers); other configs return
+``{}``.
+
 Params and caches keep the reference's structure: ``embed``, ``final_ln``,
 optional ``unembed``, the ``prefix`` list, and ``layers`` whose leaves are
 stacked ``[n_periods, ...]``. The layer stack is a Python loop over the
@@ -20,7 +31,10 @@ periods (the reference scans), indexing each stacked leaf; caches are
 written in place through those views (attention writes into them; SSM
 layers compute new state, conv and shift tensors, which are copied in).
 Hybrids keep the shared block's params in ``shared`` and its KV cache in
-``cache["layers"]["shared"]``, stacked per period.
+``cache["layers"]["shared"]``, stacked per period. MLA layers cache the
+latents ``ckv`` [.., S, R] and ``krope`` [.., S, rope]; cross layers have
+no cache. The whisper encoder's layers are stacked under
+``encoder/layers``, the decoder's cross blocks under ``cross``.
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ import torch
 
 from . import attention as attn
 from . import mlp as mlpm
+from . import moe as moem
 from . import ssm as ssmm
 from .common import dt, embed_init, dense_init, rms_norm, softcap
 from ..configs.base import ModelConfig
@@ -37,6 +52,7 @@ from ..configs.base import ModelConfig
 # a layer kind ending with this also fires the hybrid's shared block
 SHARED_SUFFIX = "_shared"
 SSM_KINDS = ("rwkv", "mamba")
+LAYER_KINDS = ("global", "local", "cross", *SSM_KINDS)
 
 
 def _kind_base(kind: str) -> str:
@@ -61,16 +77,16 @@ def chunkable(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for a layer kind or attention type the
+    model does not know (every config of ``ARCHS`` passes)."""
     kinds = {_kind_base(k) for k in cfg.layer_pattern}
     attends = bool(kinds & {"global", "local"}) or cfg.family == "hybrid"
-    if (cfg.moe or cfg.encoder or cfg.vision
-            or not kinds <= {"global", "local", *SSM_KINDS}
-            or (attends and cfg.attn_type != "gqa")):
+    if (not kinds <= set(LAYER_KINDS)
+            or (attends and cfg.attn_type not in ("gqa", "mla"))):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA decoders without MoE and the "
-            "SSM and hybrid families (MLA, MoE, encoder and vision models "
-            "are later slices)")
+            f"{cfg.name}: layer kinds {sorted(kinds)} with attention "
+            f"{cfg.attn_type!r}; the model runs {LAYER_KINDS} with GQA or "
+            "MLA")
 
 
 def _pattern_segments(cfg: ModelConfig):
@@ -93,7 +109,12 @@ def n_shared_invocations(cfg: ModelConfig) -> int:
     return max(1, per * n_periods)
 
 
-def _init_layer(seed, path, cfg, kind, dtype, device, lead=()):
+def _moe_flag(cfg, kind: str) -> bool:
+    return bool(cfg.moe) and _kind_base(kind) in ("global", "local", "cross")
+
+
+def _init_layer(seed, path, cfg, kind, dtype, device, lead=(),
+                moe_layer=False):
     kind = _kind_base(kind)
     D = cfg.d_model
     lead = tuple(lead)
@@ -107,13 +128,23 @@ def _init_layer(seed, path, cfg, kind, dtype, device, lead=()):
         return {"ln1": zeros(),
                 "mamba": ssmm.init_mamba2_block(seed, path + "/mamba", cfg,
                                                 dtype, device, lead)}
-    p: Dict[str, Any] = {
-        "ln1": zeros(),
-        "attn": attn.init_gqa(seed, path + "/attn", cfg, dtype, device, lead),
-        "ln2": zeros(),
-        "mlp": mlpm.init_mlp(seed, path + "/mlp", D, cfg.d_ff, cfg.mlp_act,
-                             dtype, device, lead),
-    }
+    if kind == "cross":
+        a = attn.init_cross_attn(seed, path + "/attn", cfg,
+                                 cfg.vision.vision_dim, dtype, device, lead)
+    elif cfg.attn_type == "mla":
+        a = attn.init_mla(seed, path + "/attn", cfg, dtype, device, lead)
+    else:
+        a = attn.init_gqa(seed, path + "/attn", cfg, dtype, device, lead)
+    p: Dict[str, Any] = {"ln1": zeros(), "attn": a, "ln2": zeros()}
+    if moe_layer:
+        p["moe"] = moem.init_moe(seed, path + "/moe", cfg, dtype, device,
+                                 lead)
+    else:
+        dff = cfg.d_ff
+        if cfg.moe and cfg.moe.first_dense_layers and cfg.moe.d_ff_dense:
+            dff = cfg.moe.d_ff_dense
+        p["mlp"] = mlpm.init_mlp(seed, path + "/mlp", D, dff, cfg.mlp_act,
+                                 dtype, device, lead)
     if cfg.name.startswith("gemma"):
         p["ln1_post"] = zeros()
         p["ln2_post"] = zeros()
@@ -139,13 +170,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
                                          (cfg.max_position, D), dtype, device)
     n_prefix, prefix_kind, period, n_periods = _pattern_segments(cfg)
     if n_prefix:
+        # an MoE config's prefix is its dense layers
         params["prefix"] = [_init_layer(seed, f"prefix/{i}", cfg, prefix_kind,
                                         dtype, device)
                             for i in range(n_prefix)]
     if n_periods:
         params["layers"] = {
             f"s{j}": _init_layer(seed, f"layers/s{j}", cfg, kind, dtype,
-                                 device, lead=(n_periods,))
+                                 device, lead=(n_periods,),
+                                 moe_layer=_moe_flag(cfg, kind))
             for j, kind in enumerate(period)}
     if cfg.family == "hybrid":
         params["shared"] = {
@@ -158,6 +191,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
                                   (n_shared_invocations(cfg), 2 * D, D),
                                   dtype, device),
         }
+    if cfg.encoder:
+        enc = {"pos": embed_init(seed, "enc/pos",
+                                 (cfg.encoder.num_frames, D), dtype, device),
+               "ln_post": torch.zeros((D,), dtype=dtype, device=device)}
+        if cfg.encoder.num_layers:
+            enc["layers"] = _init_layer(seed, "enc/layer", cfg, "global",
+                                        dtype, device,
+                                        lead=(cfg.encoder.num_layers,))
+        params["encoder"] = enc
+        if n_periods:
+            params["cross"] = {
+                "ln": torch.zeros((n_periods, D), dtype=dtype, device=device),
+                **attn.init_cross_attn(seed, "dec/cross", cfg, D, dtype,
+                                       device, lead=(n_periods,))}
     return params
 
 
@@ -184,34 +231,69 @@ def _maybe_post(h, p, name, cfg):
     return rms_norm(h, p[name], cfg.norm_eps) if name in p else h
 
 
-def _attn_layer(p, x, cfg, kind, ctx, cache=None, pos=None):
-    """Pre-norm attention + MLP block. Returns (x, new_cache)."""
+def _mlp_or_moe(p, h, cfg, aux):
+    """The block's MLP, or its MoE layer, whose aux losses are added into
+    ``aux`` in place (when it is given)."""
+    if "moe" in p:
+        out, a = moem.moe_forward(p["moe"], h, cfg)
+        if aux is not None:
+            for k, v in a.items():
+                aux[k] = aux.get(k, 0.0) + v
+        return out
+    return mlpm.mlp_forward(p["mlp"], h, cfg.mlp_act)
+
+
+def _attn_layer(p, x, cfg, kind, ctx, cache=None, pos=None, aux=None):
+    """Pre-norm attention + MLP/MoE block. Returns (x, new_cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = cache
-    if cache is None:
-        a = attn.gqa_forward(p["attn"], h, cfg, layer_kind=kind,
-                             positions=ctx.get("positions"),
-                             causal=ctx.get("causal", True))
+    mla = cfg.attn_type == "mla"
+    if kind == "cross":
+        a = attn.cross_attn_forward(p["attn"], h, ctx["vision"], cfg,
+                                    gated=True)
+    elif cache is None:
+        fwd = attn.mla_forward if mla else attn.gqa_forward
+        a = fwd(p["attn"], h, cfg, layer_kind=kind,
+                positions=ctx.get("positions"),
+                causal=ctx.get("causal", True))
     else:
         chunk = ctx.get("chunk", False)
         flash = ctx.get("use_flash", False)
+        names = ("ckv", "krope") if mla else ("k", "v")
+        c0, c1 = cache[names[0]], cache[names[1]]
         if "page_table" in ctx:
             # paged cache: leaves are shared page pools, addressed through
             # the per-row page table; ``ctx["chunk"]`` switches one-token
             # decode to the cached-context chunked prefill contract
-            fn = attn.gqa_prefill_paged if chunk else attn.gqa_decode_paged
-            a, ck, cv = fn(p["attn"], h, cfg, cache["k"], cache["v"],
-                           ctx["page_table"], pos, layer_kind=kind,
-                           use_flash=flash)
-        else:
-            fn = attn.gqa_prefill_step if chunk else attn.gqa_decode
-            a, ck, cv = fn(p["attn"], h, cfg, cache["k"], cache["v"], pos,
+            if mla:
+                fn = attn.mla_prefill_paged if chunk else attn.mla_decode_paged
+            else:
+                fn = attn.gqa_prefill_paged if chunk else attn.gqa_decode_paged
+            a, c0, c1 = fn(p["attn"], h, cfg, c0, c1, ctx["page_table"], pos,
                            layer_kind=kind, use_flash=flash)
-        new_cache = {"k": ck, "v": cv}
+        else:
+            if mla:
+                fn = attn.mla_prefill_step if chunk else attn.mla_decode
+            else:
+                fn = attn.gqa_prefill_step if chunk else attn.gqa_decode
+            a, c0, c1 = fn(p["attn"], h, cfg, c0, c1, pos, layer_kind=kind,
+                           use_flash=flash)
+        new_cache = dict(zip(names, (c0, c1)))
     x = x + _maybe_post(a, p, "ln1_post", cfg)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = mlpm.mlp_forward(p["mlp"], h2, cfg.mlp_act)
+    m = _mlp_or_moe(p, h2, cfg, aux)
     return x + _maybe_post(m, p, "ln2_post", cfg), new_cache
+
+
+def _whisper_cross(cp, x, cfg, ctx):
+    """whisper's decoder cross-attention over the encoder output, after a
+    decoder layer's whole block (ungated)."""
+    cp = cast_tree(cp, cfg)
+    h = rms_norm(x, cp["ln"], cfg.norm_eps)
+    a = attn.cross_attn_forward(
+        {k: cp[k] for k in ("wq", "wk", "wv", "wo", "gate")}, h,
+        ctx["enc_out"], cfg, gated=False)
+    return x + a
 
 
 def _store(cache, new):
@@ -258,41 +340,60 @@ def _shared_block(sp, x, x0, cfg, inv, ctx, cache=None, pos=None):
     return x + (out - h)
 
 
-def _apply_one(p, x, cfg, kind, ctx, cache, pos):
-    """One pattern slot (the shared block is fired by the caller)."""
+def _apply_one(p, x, cfg, kind, ctx, cache, pos, aux, period_idx):
+    """One pattern slot (the shared block is fired by the caller; whisper's
+    cross block of period ``period_idx`` here, after a global layer)."""
     p = cast_tree(p, cfg)
     base = _kind_base(kind)
     if base == "rwkv":
         return _rwkv_layer(p, x, cfg, cache)
     if base == "mamba":
         return _mamba_layer(p, x, cfg, cache)
-    return _attn_layer(p, x, cfg, base, ctx, cache, pos)[0]
+    x = _attn_layer(p, x, cfg, base, ctx, cache, pos, aux)[0]
+    if cfg.encoder and base == "global" and "cross_p" in ctx:
+        x = _whisper_cross(_at(ctx["cross_p"], period_idx), x, cfg, ctx)
+    return x
+
+
+def _at(tree, i):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _aux0(cfg, device):
+    if cfg.moe:
+        return {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in ("z_loss", "lb_loss", "dropped_frac")}
+    return {}
 
 
 def _apply_stack(params, cfg, x, ctx, cache=None, pos=None):
     """Prefix layers, then the period loop over the stacked leaves, with
     the shared block after each ``*_shared`` slot (invocation ``i *
     n_shared_per + shared_i``). Cache leaves are updated in place; the
-    returned cache is the one given."""
+    returned cache is the one given. Returns (x, aux, cache), aux summed
+    over the MoE layers."""
+    aux = _aux0(cfg, x.device)
     n_prefix, prefix_kind, period, n_periods = _pattern_segments(cfg)
     for i in range(n_prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x = _apply_one(params["prefix"][i], x, cfg, prefix_kind, ctx, c, pos)
+        x = _apply_one(params["prefix"][i], x, cfg, prefix_kind, ctx, c, pos,
+                       aux, 0)
+    if cfg.encoder:
+        ctx = dict(ctx, cross_p=params["cross"])
     n_shared_per = max(1, sum(1 for k in period if k.endswith(SHARED_SUFFIX)))
-    at = lambda tree, i: tree_map(lambda a: a[i], tree)
     for i in range(n_periods):
         shared_i = 0
         for j, kind in enumerate(period):
-            c = at(cache["layers"][f"s{j}"], i) if cache is not None else None
-            x = _apply_one(at(params["layers"][f"s{j}"], i), x, cfg, kind,
-                           ctx, c, pos)
+            c = _at(cache["layers"][f"s{j}"], i) if cache is not None else None
+            x = _apply_one(_at(params["layers"][f"s{j}"], i), x, cfg, kind,
+                           ctx, c, pos, aux, i)
             if kind.endswith(SHARED_SUFFIX):
-                sc = (at(cache["layers"]["shared"], i) if cache is not None
+                sc = (_at(cache["layers"]["shared"], i) if cache is not None
                       else None)
                 x = _shared_block(params["shared"], x, ctx["x0"], cfg,
                                   i * n_shared_per + shared_i, ctx, sc, pos)
                 shared_i += 1
-    return x, cache
+    return x, aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -324,18 +425,44 @@ def _logits(params, cfg, x):
     return logits
 
 
+def _run_encoder(params, cfg, frames):
+    """whisper's encoder: learned frame positions, non-causal layers,
+    ``ln_post``."""
+    ep = params["encoder"]
+    x = frames.to(dt(cfg.activation_dtype)) + ep["pos"][None].to(frames.dtype)
+    for i in range(cfg.encoder.num_layers if "layers" in ep else 0):
+        x, _ = _attn_layer(cast_tree(_at(ep["layers"], i), cfg), x, cfg,
+                           "global", {"causal": False})
+    return rms_norm(x, ep["ln_post"], cfg.norm_eps)
+
+
+def _context(params, cfg, batch):
+    """The model context a batch carries: image features, and the encoder
+    output (given as ``enc_out``, or run from ``frames``)."""
+    ctx = {}
+    if cfg.vision:
+        ctx["vision"] = batch["vision"]
+    if cfg.encoder:
+        ctx["enc_out"] = (batch["enc_out"] if "enc_out" in batch
+                          else _run_encoder(params, cfg, batch["frames"]))
+    return ctx
+
+
 def forward(params, cfg: ModelConfig, batch, last_only: bool = False):
+    """Full-sequence logits [B,S,V] (``last_only``: [B,1,V]) and the aux
+    dict."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1],
-                                     device=tokens.device)[None, :]}
+                                     device=tokens.device)[None, :],
+           **_context(params, cfg, batch)}
     if cfg.family == "hybrid":
         ctx["x0"] = x
-    x, _ = _apply_stack(params, cfg, x, ctx)
+    x, aux, _ = _apply_stack(params, cfg, x, ctx)
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x), {}
+    return _logits(params, cfg, x), aux
 
 
 def _layer_cache(cfg, kind, lead, S, dtype, device):
@@ -347,6 +474,12 @@ def _layer_cache(cfg, kind, lead, S, dtype, device):
     zeros = lambda *shape, dt_=dtype: torch.zeros(lead + shape, dtype=dt_,
                                                   device=device)
     D, s = cfg.d_model, cfg.ssm
+    if kind == "cross":
+        return {}
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return {"ckv": zeros(S, m.kv_lora_rank),
+                "krope": zeros(S, m.qk_rope_head_dim)}
     if kind == "rwkv":
         H = D // s.head_dim
         return {"state": zeros(H, s.head_dim, s.head_dim, dt_=torch.float32),
@@ -387,7 +520,8 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     slot axis a shared page-pool axis and the sequence axis one page
     ([n_pages, Hkv, page_size, Dh] per layer). Slots address the pool
     through the [n_slots, P] page table passed as
-    ``ctx_extra={"page_table": ...}``."""
+    ``ctx_extra={"page_table": ...}``; [n_pages, page_size, R] and
+    [n_pages, page_size, rope] latent pools for MLA."""
     if not pageable(cfg):
         raise ValueError(f"{cfg.name} is not pageable")
     return init_cache(cfg, n_pages, page_size, dtype, device)
@@ -397,8 +531,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, ctx_extra=None,
                 use_flash: bool = False):
     """token: [B,1] int; pos: scalar OR [B] per-row positions.
     ``ctx_extra={"page_table": [B,P] int32}`` switches attention layers to
-    the paged pools; ``use_flash`` routes eligible layers through the
-    flash-decode kernel. Returns (logits [B,1,V], cache)."""
+    the paged pools; ``use_flash`` routes eligible GQA layers through the
+    flash-decode kernel; ``ctx_extra`` also carries ``vision`` or
+    ``enc_out``. Returns (logits [B,1,V], cache)."""
     check_supported(cfg)
     B = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device)
@@ -411,7 +546,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, ctx_extra=None,
         ctx.update(ctx_extra)
     if cfg.family == "hybrid":
         ctx["x0"] = x
-    x, cache = _apply_stack(params, cfg, x, ctx, cache=cache, pos=pos)
+    x, _, cache = _apply_stack(params, cfg, x, ctx, cache=cache, pos=pos)
     return _logits(params, cfg, x), cache
 
 
@@ -438,19 +573,22 @@ def prefill_step(params, cfg: ModelConfig, tokens, cache, pos,
         ctx["use_flash"] = True
     if ctx_extra:
         ctx.update(ctx_extra)
-    x, cache = _apply_stack(params, cfg, x, ctx, cache=cache, pos=pos)
+    x, _, cache = _apply_stack(params, cfg, x, ctx, cache=cache, pos=pos)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
 def prefill(params, cfg: ModelConfig, batch, max_seq: int):
     """Reference prompt processing: one decode step per prompt token into a
     fresh dense cache, without the flash kernels (the serving engine's
-    prompt path for models that are not :func:`chunkable`). Returns (last
-    logits [B,1,V], cache)."""
+    prompt path for models that are not :func:`chunkable`). ``batch``
+    carries ``vision`` or ``frames`` where the model needs them. Returns
+    (last logits [B,1,V], cache)."""
     tokens = batch["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_seq, device=tokens.device)
+    ctx_extra = _context(params, cfg, batch)
     logits = None
     for t in range(tokens.shape[1]):
         logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache,
-                                    torch.tensor(t, device=tokens.device))
+                                    torch.tensor(t, device=tokens.device),
+                                    ctx_extra=ctx_extra)
     return logits, cache

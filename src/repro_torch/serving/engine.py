@@ -101,9 +101,11 @@ derived from its requests (prompt-sized prefill, chunked when
 creates no tensor and compiles no kernel.
 
 PyTorch runs eagerly, so there is no compile step; pools and dense caches
-are updated in place. The MLA, MoE, encoder and vision model families are
-not ported yet (``tf.check_supported`` raises ``NotImplementedError`` on
-the torch backend).
+are updated in place. The torch backend serves every decoder-only family
+(GQA, MLA, MoE, SSM, hybrid); encoder and vision models are refused at
+:meth:`ServingEngine.add_tenant`, since a request carries tokens only (the
+reference's engine fails on them at their first prefill). They run through
+the model API.
 """
 from __future__ import annotations
 
@@ -1390,6 +1392,12 @@ class ServingEngine:
         and ``sim_swap_bytes`` shape the tenant's modeled kernel stream."""
         if self.backend_name == "torch":
             tf.check_supported(cfg)
+            if cfg.encoder or cfg.vision:
+                raise ValueError(
+                    f"{cfg.name}: the engine serves decoder-only models; a "
+                    "request carries tokens only, and this model needs "
+                    "audio frames or image features (run it through "
+                    "repro_torch.models.transformer)")
             act = dt(cfg.activation_dtype)
             if params is None:
                 params = tf.init_params(

@@ -5,7 +5,9 @@ reference engine (``repro.serving``) or the port's (``repro_torch.serving``,
 ``torch_device="cpu"``) — with the same weights (the port's seeded init,
 given to the reference through ``bridge.to_numpy``; the reference's own
 init salts its keys per process) and one virtual clock that steps one unit
-a quantum, and a snapshot of everything the two must agree on."""
+a quantum, and a snapshot of everything the two must agree on.
+:func:`family_models` and :func:`side_of` give each tenant a model of its
+own (the MoE and MLA families' engine tests)."""
 import functools
 from types import SimpleNamespace
 
@@ -40,6 +42,19 @@ def tiny_models(seed: int = 7):
     return jcfg, cfg, jax.tree.map(jnp.asarray, bridge.to_numpy(tp)), tp
 
 
+def family_models(names, seed: int = 7):
+    """{name: (reference cfg, port cfg, reference params, port params)}
+    for the f32 smoke configs of ``names``, the same weights on both
+    sides."""
+    out = {}
+    for name in names:
+        cfg = configs.smoke_config(name)
+        tp = tf.init_params(cfg, seed, "cpu")
+        out[name] = (jconfigs.smoke_config(name), cfg,
+                     jax.tree.map(jnp.asarray, bridge.to_numpy(tp)), tp)
+    return out
+
+
 def side(tiny, name: str) -> SimpleNamespace:
     """Everything one side's scenario needs: its engine, tenant spec,
     serving and controller modules, config and weights."""
@@ -47,20 +62,32 @@ def side(tiny, name: str) -> SimpleNamespace:
     if name == "ref":
         return SimpleNamespace(Engine=jserving.ServingEngine,
                                Spec=JSpec, sv=jserving, cm=jctl, cfg=jcfg,
-                               params=jp, kw={})
+                               params=jp, kw={}, models={})
     return SimpleNamespace(Engine=serving.ServingEngine,
                            Spec=TenantSpec, sv=serving, cm=ctl, cfg=cfg,
-                           params=tp, kw={"torch_device": "cpu"})
+                           params=tp, kw={"torch_device": "cpu"}, models={})
+
+
+def side_of(models, tenant_models, name: str) -> SimpleNamespace:
+    """:func:`side` with a model a tenant: ``tenant_models`` maps a tenant
+    name to a key of ``models`` (from :func:`family_models`)."""
+    s = side(next(iter(models.values())), name)
+    i = 0 if name == "ref" else 1
+    s.models = {t: (models[m][i], models[m][i + 2])
+                for t, m in tenant_models.items()}
+    return s
 
 
 def build(s, clock, *, tenants=("be0",), specs=None, **kw):
     """An engine on ``clock`` with tenants named ``ls*`` (LS) or ``be*``
-    (BE); ``specs`` overrides a tenant's TenantSpec keywords."""
+    (BE); ``specs`` overrides a tenant's TenantSpec keywords. A tenant
+    in ``s.models`` gets its own config and weights."""
     eng = s.Engine(now_fn=lambda: clock["t"], **s.kw, **kw)
     for name in tenants:
         pri = "LS" if name.startswith("ls") else "BE"
+        cfg, params = s.models.get(name, (s.cfg, s.params))
         eng.add_tenant(s.Spec(name, pri, **(specs or {}).get(name, {})),
-                       s.cfg, params=s.params)
+                       cfg, params=params)
     return eng
 
 
@@ -135,11 +162,11 @@ def _pcie_s(snap):
     return got
 
 
-def _assert_pages_close(ref, port):
+def _assert_pages_close(ref, port, tol=1e-5):
     """Host pages of the two engines: the K/V the two frameworks computed
     agree to f32 rounding, not bit for bit, so neither do the pages' bytes
-    or CRCs. fp16 pages within (1e-5, 1e-5); int8 pages' scales within
-    1e-5 relative and their codes within one step."""
+    or CRCs. fp16 pages within (``tol``, ``tol``); int8 pages' scales
+    within 1e-5 relative and their codes within one step."""
     assert len(port) == len(ref)
     for (pl, ps), (rl, rs) in zip(port, ref):
         assert (ps is None) == (rs is None) and len(pl) == len(rl)
@@ -149,17 +176,20 @@ def _assert_pages_close(ref, port):
             b = np.asarray(b)
             assert a.dtype == b.dtype and a.shape == b.shape
             if ps is None:
-                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+                np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
             else:
                 d = np.abs(a.astype(np.int16) - b.astype(np.int16))
                 assert d.max(initial=0) <= 1
 
 
-def assert_same(ref: dict, port: dict):
+def assert_same(ref: dict, port: dict, page_tol: float = 1e-5):
+    """Everything equal, host pages within ``page_tol`` (a deeper model's
+    K/V drift more: its test states its own)."""
     ref_p, port_p = _pcie_s(ref), _pcie_s(port)
     assert port_p == pytest.approx(ref_p, rel=1e-12)
     for t in ref["host_pages"]:
-        _assert_pages_close(ref["host_pages"][t], port["host_pages"][t])
+        _assert_pages_close(ref["host_pages"][t], port["host_pages"][t],
+                            page_tol)
     for key in ref:
         if key != "host_pages":
             assert port[key] == ref[key], key

@@ -7,7 +7,8 @@ other flag, with ``--prefix-cache`` and with ``--grid-search``. On the torch
 backend, each flag set the chip smoke drives (paged with the prefix cache
 and the swap tier, dense chunked, the online controller over colored
 pools, disaggregation over four modeled devices, a trace whose JSONL
-passes the port's schema check; the paged set also with one slot, where
+passes the port's schema check, an LS deepseek-v2 + BE moonshot pair,
+paged; the paged set also with one slot, where
 the prefix cache hits, and over two pages, where a request
 swaps out and back) and ``--chaos`` exits 0, completes every
 request and prints the metrics keys the reference launcher prints for the
@@ -49,6 +50,9 @@ TORCH_FLAGS = {
                "--prefill-devices", "2"],
     "trace": ["--trace", "TRACE", "--paged", "--use-flash"],
     "chaos": ["--chaos"],
+    # the MLA + MoE LS tenant beside the GQA + MoE BE tenant
+    "moe_mla": ["--ls", "deepseek-v2-236b", "--be", "moonshot-v1-16b-a3b",
+                "--paged"],
 }
 
 # one process that runs the reference launcher's main() once per flag set
@@ -140,7 +144,7 @@ def runs(tmp_path_factory):
     # dominates), started first
     jobs = {("ref", i): ["-c", _REF_LOOP, json.dumps(
         {n: ref_argv[n] for n in group})]
-        for i, group in enumerate((("paged", "paged_hits"),
+        for i, group in enumerate((("paged", "paged_hits", "moe_mla"),
                                    ("dense", "online", "paged_swap"),
                                    ("disagg", "trace", "chaos")))}
     for name, flags in SIM_FLAGS.items():

@@ -224,7 +224,23 @@ def test_forward_matches_reference(models, name):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
-        tf.init_params(smoke_config("deepseek-v2-236b"), 0, "cpu")
-    with pytest.raises(NotImplementedError):
-        tf.init_cache(smoke_config("whisper-small"), 1, 8, device="cpu")
+    """The engine refuses encoder and vision tenants (a request carries
+    tokens only, and these models need frames or image features); the
+    reference's engine fails on them too, at their first prefill, whose
+    batch has no ``frames`` / ``vision``."""
+    from repro.core.tenancy import TenantSpec as JSpec
+    from repro.serving import ServingEngine as JEngine
+    from repro_torch.core.tenancy import TenantSpec
+    from repro_torch.serving import ServingEngine
+    for name, field in (("whisper-small", "frames"),
+                        ("llama-3.2-vision-90b", "vision")):
+        eng = ServingEngine(max_seq=16, torch_device="cpu")
+        with pytest.raises(ValueError, match="decoder-only"):
+            eng.add_tenant(TenantSpec("be0", "BE"), smoke_config(name),
+                           seed=0)
+        assert not eng.tenants
+        jeng = JEngine(max_seq=16)
+        jeng.add_tenant(JSpec("be0", "BE"), jsmoke(name))
+        jeng.submit("be0", np.arange(4), max_new=1)
+        with pytest.raises(KeyError, match=field):
+            jeng.run_until_idle()
