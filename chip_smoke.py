@@ -192,6 +192,48 @@ non-zero:
              rounding, the reference's too: 2.90 for whisper-small on the
              CPU).
              Each part starts from freed memory and prints its peak.
+13. coloring — the paper's channel reverse engineering (Algo 1-3 and the
+             granularity probe) on the simulated rtx-a2000 (host numpy):
+             15000 addresses of a 64 MiB space labelled by channel conflict,
+             every channel found, label accuracy > 0.97, granularity 2 KiB;
+             then ``fit_channel_hash`` on the card at the reference's
+             defaults (9 layers of 256, 3000 Adam steps of 1024) on those
+             samples: test accuracy > 0.95 and agreement with the hash on
+             every page of the space it did not see >= 0.95; steps/s
+             printed. (The repo has no model of the H100's own channels.)
+14. long sequence — qwen3-1.7b at full width, bf16, B 1, S 32768 (the
+             reference's prefill_32k): ``forward(last_only=True)`` on the
+             query-blocked attention path (no kernel; peak below 24 GiB,
+             where [B, H, S, S] f32 scores alone would take 68.7 GB a
+             layer), against the same tokens through paged
+             ``prefill_step`` in 32 chunks of 1024 with use_flash (every
+             prefill_attention_paged launch on "wgmma"): last-position
+             logits within MODEL_REL_TOL; then the chunked run again with
+             every launch held against its plain version on copies of its
+             inputs taken at the call (relative L2 per (row, KV head)
+             within LATE_REL_TOL, Skv up to 32768 over a 2048-page table),
+             its logits equal to the timed run's, and three planted faults
+             on the last launch caught (a block scaled by 1.1, the chunk's
+             own 64 pages read as the 64 before them, pages 1024-2047 read
+             as pages 0-1023).
+15. training — (a) one step of qwen3-1.7b at full width, 2 layers, S
+             2304 (a ragged last query block), batch 1, on the card
+             against the same params and batch on the CPU: f32 gradients
+             (TF32 off) within 1e-4 relative L2 on every leaf; remat
+             "full" against "none" in bf16 within 1e-3; bf16 remat "full"
+             against the CPU's f32 within MODEL_REL_TOL; AdamW in place on
+             the card against the CPU on the same gradients (the params'
+             update, m and v) within 1e-6. Then qwen3-1.7b at full width,
+             f32 params, bf16
+             activations, remat "full", seq 4096 at batch 1 (train_4k's
+             256 rows cut to 1), 6 ``Trainer`` steps: every loss and grad
+             norm finite, step 0's loss equal to a separate ``loss_fn``
+             within MODEL_REL_TOL; step ms and tokens/s printed beside the
+             card. (b) ``repro_torch.launch.train.main`` on the qwen3
+             smoke config, 16 steps with a checkpoint dir, with
+             deterministic algorithms on: stopped at step 8 and resumed,
+             its steps 8-15 losses bit-equal to an uninterrupted run, the
+             last loss below the first.
 
 Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9-12 are read with the
 counters set to 0 just before each phase drives its path (phases 7 and 8a
@@ -202,9 +244,10 @@ phase 9's runs under "tidal_launches", phase 10's (a)-(c) under
 "hierarchy_launches" and phase 11a's runs under "disagg_launches" of the
 two paged rows, phase 11b's launches by flag set and their worst error
 under "launcher" of the four engine kernels' rows, phase 12's under
-"families_launches" of rows 1-3); the last line is the device JSON.
-``--from 10``, ``--from 11`` and ``--from 12`` run phases 1-3 and that
-phase alone, ``--until N`` stops after phase N (no result lines either
+"families_launches" of rows 1-3, phase 14's under "long_seq_launches" of
+row 2); the last line is the device JSON. ``--from N`` (or ``--start
+N``), N in 10-15, runs phases 1-3 and phase N alone, or N through
+``--until``; ``--until N`` stops after phase N (no result lines either
 way).
 """
 from __future__ import annotations
@@ -2967,22 +3010,24 @@ def _call_err(torch, out, want, Hkv, what):
     return err, rel
 
 
-def _check_at_call(torch, names, stats):
+def _check_at_call(torch, names, stats, keep=()):
     """Wrap ``ops.<name>`` for each of ``names``: every call copies its
     inputs at the call, launches the kernel, and holds the output against
     the plain version on those copies on the card, within TOL
     (``_call_err``). ``stats[name]`` collects the calls, the worst error
     and the q shapes seen; ``stats["_last"]`` keeps the last call of each
-    kernel (copies) for the planted fault. Returns the function that
-    unwraps."""
+    kernel (copies) for the planted fault, and ``stats["_kept"][i]`` the
+    calls of index i in ``keep`` (counted from 0 over ``names``). Returns
+    the function that unwraps."""
     from repro_torch.kernels import ops
     orig = {n: getattr(ops, n) for n in names}
+    stats.setdefault("_n", 0)
 
     def wrap(name, fn):
         def call(*args, **kw):
-            keep = _tensors((args, kw), lambda t: t.detach().clone())
+            kept = _tensors((args, kw), lambda t: t.detach().clone())
             out = fn(*args, **kw)
-            want = _plain_on_card(fn, *keep)
+            want = _plain_on_card(fn, *kept)
             err, rel = _call_err(torch, out, want, args[1].shape[1],
                                  f"{name} at q {tuple(args[0].shape)}")
             st = stats.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
@@ -2991,8 +3036,11 @@ def _check_at_call(torch, names, stats):
             st["max_abs_err"] = max(st["max_abs_err"], err)
             st["rel"] = max(st["rel"], rel)
             st["q"].add(tuple(args[0].shape))
-            stats.setdefault("_last", {})[name] = (fn, keep, _tensors(
-                out, lambda t: t.detach().clone()))
+            rec = (fn, kept, _tensors(out, lambda t: t.detach().clone()))
+            stats.setdefault("_last", {})[name] = rec
+            if stats["_n"] in keep:
+                stats.setdefault("_kept", {})[stats["_n"]] = rec
+            stats["_n"] += 1
             return out
         return call
     for n, fn in orig.items():
@@ -3538,16 +3586,569 @@ def families_phase(torch, seed):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: channel reverse engineering and the MLP hash fit
+# ---------------------------------------------------------------------------
+
+# the paper's sample count (§5.2: ~15K probed addresses) over a 64 MiB
+# space of rtx-a2000's 1 KiB hash pages; the fit at the reference's
+# defaults (9 layers of 256, 3000 Adam steps of 1024 addresses)
+RE_SPACE, RE_SAMPLES = 64 << 20, 15_000
+FIT_ACC = 0.95
+
+
+def coloring_phase(torch, seed):
+    """Phase 13: Algo 1-3 and the granularity probe on the simulated
+    rtx-a2000 (host numpy), then ``fit_channel_hash`` on the card on the
+    probed (address, cluster label) samples; its held-out accuracy on
+    every page of the space it did not see, labels mapped to channels by
+    the samples' majority."""
+    import numpy as np
+    from repro_torch.core.coloring import (VRAMDevice, collect_samples,
+                                           fit_channel_hash, gpu_hash_model,
+                                           measure_granularity)
+    t0 = time.perf_counter()
+    hm = gpu_hash_model("rtx-a2000")
+    dev = VRAMDevice(hm, seed=seed + 1)
+    res = collect_samples(dev, RE_SPACE, RE_SAMPLES, seed=seed)
+    gran = measure_granularity(dev)
+    t_probe = time.perf_counter() - t0
+    n_unlabelled = int((res.labels < 0).sum())
+    log(f"  probes (host): {RE_SAMPLES} addresses of {RE_SPACE >> 20} MiB, "
+        f"{res.num_channels_found} channels found (true {hm.num_channels}), "
+        f"label accuracy {res.label_accuracy:.4f}, {n_unlabelled} "
+        f"unlabelled, granularity {gran} B, {dev.reads} timed reads in "
+        f"{t_probe:.1f}s")
+    require(res.num_channels_found == hm.num_channels,
+            f"found {res.num_channels_found} channels")
+    require(res.label_accuracy > 0.97, f"label accuracy {res.label_accuracy}")
+    require(gran == 2048, f"granularity {gran}")      # A2000: 2 KiB runs
+    ok = res.labels >= 0
+    addrs, labels = res.addrs[ok], res.labels[ok]
+    require(len(addrs) >= RE_SAMPLES - 100, f"{len(addrs)} labelled")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fit = fit_channel_hash(addrs, labels, hm.granularity,
+                           res.num_channels_found, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t1
+    to_channel = {}
+    for lab in np.unique(labels):
+        vals, counts = np.unique(res.true_channels[ok][labels == lab],
+                                 return_counts=True)
+        to_channel[int(lab)] = int(vals[counts.argmax()])
+    held = np.setdiff1d(np.arange(RE_SPACE // hm.granularity,
+                                  dtype=np.int64) * hm.granularity, addrs)
+    pred = np.vectorize(to_channel.get)(fit.predict(held))
+    agree = float(np.mean(pred == hm.channel_of(held)))
+    log(f"  fit on {torch.cuda.get_device_name(0)}: {len(addrs)} labelled "
+        f"addresses, 3000 steps in {t_fit:.2f}s ({3000 / t_fit:.0f} "
+        f"steps/s); train acc {fit.train_acc:.4f}, test acc "
+        f"{fit.test_acc:.4f}, held-out agreement with the hash "
+        f"{agree:.4f} over {len(held)} pages (limit {FIT_ACC})")
+    require(fit.test_acc > FIT_ACC, f"MLP test acc {fit.test_acc}")
+    require(agree >= FIT_ACC, f"held-out agreement {agree}")
+    del fit
+    _free(torch)
+    log(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: long-sequence forward (query-blocked attention)
+# ---------------------------------------------------------------------------
+
+LONG_S, LONG_CHUNK = 32_768, 1024
+LONG_PEAK_GIB = 24.0
+
+
+def _chunked_prefill(torch, params, cfg, toks):
+    """``toks`` [1, LONG_S] through paged ``prefill_step`` in chunks of
+    LONG_CHUNK with use_flash, one page table over the whole pool. Returns
+    the last position's logits [1, V] in f32."""
+    from repro_torch.models import transformer as tf
+    n_pages = LONG_S // PAGE
+    pools = tf.init_paged_cache(cfg, n_pages, PAGE, device="cuda")
+    pt = torch.arange(n_pages, dtype=torch.int32, device="cuda")[None]
+    with torch.inference_mode():
+        for pos in range(0, LONG_S, LONG_CHUNK):
+            lp, pools = tf.prefill_step(
+                params, cfg, toks[:, pos:pos + LONG_CHUNK], pools,
+                torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                ctx_extra={"page_table": pt}, use_flash=True)
+    return lp[:, 0].float()
+
+
+def _planted_pages(torch, rec, dst, src):
+    """The plain version of the recorded prefill_attention_paged call
+    ``rec`` with page-table entries ``dst`` read from entries ``src`` (a
+    kernel that misreads those pages), against the sound plain version:
+    its worst relative L2 per (row, KV head)."""
+    fn, (args, kw), _ = rec
+    want = _plain_on_card(fn, args, kw)
+    pt = args[3].clone()
+    pt[:, dst] = args[3][:, src]
+    bad = _plain_on_card(fn, (*args[:3], pt, *args[4:]), kw)
+    return _head_rel(torch, bad.float(), want.float(),
+                     args[1].shape[1]).max().item()
+
+
+def long_seq_phase(torch, seed):
+    """Phase 14: qwen3-1.7b at full width, bf16, B 1, S 32768 (the
+    reference's prefill_32k): ``forward(last_only=True)`` on the blocked
+    path, then the same tokens through paged ``prefill_step`` in chunks of
+    LONG_CHUNK with use_flash (``prefill_attention_paged``), timed, then
+    again with every launch held against its plain version at the call.
+    Returns the timed chunked run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    _free(torch)
+    params = tf.init_params(cfg, seed, "cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_S), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    require(LONG_S > attn.BLOCKED_THRESHOLD, "S below the threshold")
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        lf, _ = tf.forward(params, cfg, {"tokens": toks}, last_only=True)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t1
+    peak = _peak_gib(torch)
+    fwd_launches = sum(ops.launch_counts().values())
+    lf = lf[:, 0].float()
+    log(f"  forward(last_only) S {LONG_S}: {t_fwd:.2f}s, peak "
+        f"{peak:.2f} GiB ({base:.2f} GiB weights and tokens; limit "
+        f"{LONG_PEAK_GIB}), no kernel launched ({fwd_launches})")
+    require(peak < LONG_PEAK_GIB, f"blocked forward peak {peak:.2f} GiB")
+    require(fwd_launches == 0, "the forward launched a kernel")
+    require(bool(torch.isfinite(lf).all()), "forward logits not finite")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lp = _chunked_prefill(torch, params, cfg, toks)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t2
+    launches = ops.launch_counts()["prefill_attention_paged"]
+    routes = ops.route_counts()["prefill_attention_paged"]
+    want = cfg.num_layers * (LONG_S // LONG_CHUNK)
+    rel = ((lf - lp).norm() / lp.norm()).item()
+    agree = bool((lf.argmax(-1) == lp.argmax(-1)).all())
+    log(f"  chunked paged prefill_step x {LONG_S // LONG_CHUNK} (chunk "
+        f"{LONG_CHUNK}, use_flash): {t_pre:.2f}s, "
+        f"prefill_attention_paged launches {launches} (want {want}), routes "
+        f"{routes}")
+    log(f"  last-position logits blocked forward vs chunked flash prefill: "
+        f"rel L2 {rel:.3e} (tol {MODEL_REL_TOL}), max abs "
+        f"{(lf - lp).abs().max().item():.3e}, argmax equal {agree}")
+    require(launches == want, f"{launches} prefill launches, want {want}")
+    require(routes.get("wgmma", 0) == want, f"routes {routes}")
+    require(rel <= MODEL_REL_TOL, f"long-sequence logits rel err {rel}")
+    # the same chunked run, every launch held against its plain version;
+    # the last chunk's launches of the first and the last layer kept
+    name, stats = "prefill_attention_paged", {}
+    first, last = launches - cfg.num_layers, launches - 1
+    ops.reset_launch_counts()
+    undo = _check_at_call(torch, (name,), stats, keep=(first, last))
+    t3 = time.perf_counter()
+    try:
+        lc = _chunked_prefill(torch, params, cfg, toks)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    t_chk = time.perf_counter() - t3
+    st = stats[name]
+    require(ops.launch_counts()[name] == launches == st["calls"],
+            f"checked run: {ops.launch_counts()[name]} launched, "
+            f"{st['calls']} checked, timed run {launches}")
+    same = torch.equal(lc, lp)
+    log(f"  checked run ({t_chk:.2f}s, logits equal to the timed run's "
+        f"{same}): {st['calls']} launches each within relative L2 "
+        f"{LATE_REL_TOL['bfloat16']} per (row, KV head) of the plain "
+        f"version on copies of their inputs: worst {st['rel']:.3e}, max abs "
+        f"{st['max_abs_err']:.3e}")
+    require(same, "checked run's logits differ from the timed run's")
+    _planted_call_fault(torch, stats, name)
+    # planted page faults on the last chunk (Skv LONG_S over the whole
+    # table): the chunk's own pages read as those before them (a dropped
+    # or misread tail), the table's second half read as its first
+    P, tail = LONG_S // PAGE, LONG_CHUNK // PAGE
+    faults = {"tail": (slice(P - tail, P), slice(P - 2 * tail, P - tail)),
+              "half": (slice(P // 2, P), slice(0, P // 2))}
+    read = {(layer, k): _planted_pages(torch, stats["_kept"][i], *f)
+            for layer, i in ((0, first), (cfg.num_layers - 1, last))
+            for k, f in faults.items()}
+    log(f"  planted faults, the last launch's largest (row, KV head) block "
+        f"x1.1: caught; on the last chunk (Skv {LONG_S}, {P} pages), its "
+        f"own {tail} pages read as the {tail} before them: layer 0 "
+        f"{read[0, 'tail']:.3e}, layer {cfg.num_layers - 1} "
+        f"{read[cfg.num_layers - 1, 'tail']:.3e}; pages {P // 2}-{P - 1} "
+        f"read as 0-{P // 2 - 1}: layer 0 {read[0, 'half']:.3e}, layer "
+        f"{cfg.num_layers - 1} {read[cfg.num_layers - 1, 'half']:.3e} "
+        f"(limit {LATE_REL_TOL['bfloat16']})")
+    # a kernel fault reads in every layer's launches; layer 0 (values of
+    # the embeddings, no common component yet) must show each
+    for k in faults:
+        require(read[0, k] > LATE_REL_TOL["bfloat16"],
+                f"the kernel-vs-plain check misses a planted fault ({k}, "
+                f"layer 0: {read[0, k]})")
+    del params, toks, stats
+    _free(torch)
+    log(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_STEPS = 4096, 6      # train_4k's seq_len at batch 1
+RESUME_STEPS, RESUME_AT = 16, 8
+# one step on the card against the CPU: qwen3-1.7b at full width cut to
+# CHECK_LAYERS layers, at CHECK_S tokens (blocked attention with a ragged
+# last block of 256 rows), batch 1
+CHECK_LAYERS, CHECK_S = 2, 2304
+# f32 gradients, the card (TF32 off) against the CPU: summation order only,
+# against a backward fault's O(1)
+GRAD_F32_TOL = 1e-4
+# remat "full" against "none", both bf16 on the card: the recomputed
+# period runs the same kernels on the same inputs
+REMAT_TOL = 1e-3
+# AdamW on the same gradients, the card in place against the CPU:
+# elementwise f32 on both sides
+ADAMW_TOL = 1e-6
+
+
+def _grads(torch, cfg, params, batch):
+    """``loss_fn``'s loss and its gradients in flatten order, taken as the
+    trainer's step takes them (autograd over every param leaf)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves, unflatten
+    flat = [p.detach().clone().requires_grad_(True) for p in leaves(params)]
+    with torch.enable_grad():
+        loss, _ = tf.loss_fn(unflatten(params, flat), cfg, batch)
+        g = torch.autograd.grad(loss, flat, materialize_grads=True)
+    return float(loss.detach()), [x.detach() for x in g]
+
+
+def _worst_leaf(torch, got, want):
+    """The worst relative L2 over the leaves of ``got`` against ``want``,
+    on ``want``'s device (a leaf whose ``want`` is 0 reads 0 or inf)."""
+    import math
+    worst = 0.0
+    for a, b in zip(got, want):
+        d = (a.to(b.device).float() - b.float()).norm().item()
+        n = b.float().norm().item()
+        worst = max(worst, d / n if n > 0 else (0.0 if d == 0 else math.inf))
+    return worst
+
+
+def _train_step_check(torch, cfg, S, seed, dev="cuda"):
+    """One training step of ``cfg`` (bf16 activations) at S tokens on
+    ``dev`` against the CPU, from the same params and batch: f32
+    gradients on ``dev`` against the CPU's within GRAD_F32_TOL; remat
+    "full" against "none" in bf16 on ``dev`` within REMAT_TOL; bf16
+    remat "full" against the CPU's f32 within MODEL_REL_TOL; AdamW in
+    place on ``dev`` against the CPU on the CPU's gradients (params'
+    update, m and v) within ADAMW_TOL. Returns the readings."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import (AdamWConfig, DataConfig, adamw_update,
+                                   device_batch, init_opt_state)
+    from repro_torch.train.tree import leaves, unflatten
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=1,
+                    seed=seed)
+    p_cpu = tf.init_params(cfg, seed, "cpu")
+    p_dev = unflatten(p_cpu, [p.to(dev) for p in leaves(p_cpu)])
+    batch = device_batch(dc, 0, None, dev)
+    f32 = cfg.replace(activation_dtype="float32", remat="none")
+    l_cpu, g_cpu = _grads(torch, f32, p_cpu, device_batch(dc, 0, None, "cpu"))
+    l_f32, g_f32 = _grads(torch, f32, p_dev, batch)
+    l_full, g_full = _grads(torch, cfg.replace(remat="full"), p_dev, batch)
+    l_none, g_none = _grads(torch, cfg.replace(remat="none"), p_dev, batch)
+    r = {"loss_f32": abs(l_f32 - l_cpu) / abs(l_cpu),
+         "grad_f32": _worst_leaf(torch, g_f32, g_cpu),
+         "remat": _worst_leaf(torch, g_full, g_none),
+         "loss_bf16": abs(l_full - l_cpu) / abs(l_cpu),
+         "grad_bf16": _worst_leaf(torch, g_full, g_cpu)}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    u_cpu, s_cpu, _ = adamw_update(opt, unflatten(p_cpu, g_cpu),
+                                   init_opt_state(p_cpu), p_cpu)
+    u_dev, s_dev, _ = adamw_update(
+        opt, unflatten(p_dev, [g.to(dev) for g in g_cpu]),
+        init_opt_state(p_dev), p_dev, donate=True)
+    p0 = leaves(p_cpu)
+    r["adamw"] = max(
+        _worst_leaf(torch, [a.cpu() - b for a, b in zip(leaves(u_dev), p0)],
+                    [a - b for a, b in zip(leaves(u_cpu), p0)]),
+        _worst_leaf(torch, leaves(s_dev.m), leaves(s_cpu.m)),
+        _worst_leaf(torch, leaves(s_dev.v), leaves(s_cpu.v)))
+    for key, lim in (("loss_f32", GRAD_F32_TOL), ("grad_f32", GRAD_F32_TOL),
+                     ("remat", REMAT_TOL), ("loss_bf16", MODEL_REL_TOL),
+                     ("grad_bf16", MODEL_REL_TOL), ("adamw", ADAMW_TOL)):
+        require(r[key] <= lim, f"training step check {key}: {r[key]} over "
+                               f"{lim}")
+    return r
+
+
+def train_phase(torch, seed, smi):
+    """Phase 15: (a) one step of qwen3-1.7b at full width cut to
+    CHECK_LAYERS layers on the card against the CPU
+    (``_train_step_check``), then qwen3-1.7b at full width, f32 params,
+    bf16 activations, remat "full", S 4096, batch 1 (train_4k cut from 256
+    rows), TRAIN_STEPS ``Trainer`` steps; (b) the launcher
+    ``repro_torch.launch.train.main`` on the smoke config, interrupted at
+    RESUME_AT and resumed, against an uninterrupted run."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import (AdamWConfig, DataConfig, Trainer,
+                                   TrainerConfig, device_batch)
+    t0 = time.perf_counter()
+    _free(torch)
+    cfg = get_config("qwen3-1.7b").replace(remat="full")
+    t1 = time.perf_counter()
+    r = _train_step_check(torch, cfg.replace(num_layers=CHECK_LAYERS),
+                          CHECK_S, seed)
+    log(f"  (a) one step of qwen3-1.7b at full width, {CHECK_LAYERS} "
+        f"layers, S {CHECK_S}, on the card against the CPU "
+        f"({time.perf_counter() - t1:.1f}s): f32 loss rel "
+        f"{r['loss_f32']:.3e}, worst-leaf grad rel L2 {r['grad_f32']:.3e} "
+        f"(tol {GRAD_F32_TOL}); bf16 remat full vs none {r['remat']:.3e} "
+        f"(tol {REMAT_TOL}); bf16 remat full vs the CPU's f32: loss rel "
+        f"{r['loss_bf16']:.3e}, grads {r['grad_bf16']:.3e} (tol "
+        f"{MODEL_REL_TOL}); AdamW in place vs the CPU on the same grads "
+        f"{r['adamw']:.3e} (tol {ADAMW_TOL})")
+    _free(torch)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=1, seed=seed)
+    tr = Trainer(cfg, dc, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                      total_steps=TRAIN_STEPS),
+                 TrainerConfig(steps=TRAIN_STEPS), seed=seed, device="cuda")
+    n_params = sum(p.numel() for p in _leaves(tr.params))
+    with torch.no_grad():
+        l0, _ = tf.loss_fn(tr.params, cfg, device_batch(dc, 0, None,
+                                                        "cuda"))
+    l0 = float(l0)
+    grad_norms = []
+    step_fn = tr._step_fn
+
+    def recorded(*a):
+        out = step_fn(*a)
+        grad_norms.append(float(out[3]["grad_norm"]))
+        return out
+    tr._step_fn = recorded
+    torch.cuda.reset_peak_memory_stats()
+    hist = tr.run()
+    peak = _peak_gib(torch)
+    losses = [h["loss"] for h in hist]
+    ms = [h["time_s"] * 1e3 for h in hist]
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    log(f"  (a) qwen3-1.7b {n_params / 1e9:.3f} B params f32, bf16 "
+        f"activations, remat full, S {TRAIN_SEQ} x 1: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in grad_norms]}")
+    log(f"  step ms {[round(x, 1) for x in ms]} (first with warm-up); "
+        f"median of steps 1-{TRAIN_STEPS - 1} {steady:.1f} ms, "
+        f"{TRAIN_SEQ / steady * 1e3:.0f} tokens/s; peak {peak:.2f} GiB; "
+        f"{smi}")
+    require(all(math.isfinite(x) for x in losses + grad_norms),
+            "non-finite loss or grad norm")
+    rel = abs(losses[0] - l0) / abs(l0)
+    log(f"  step 0 loss {losses[0]:.6f} vs a separate loss_fn "
+        f"{l0:.6f}: rel {rel:.3e} (tol {MODEL_REL_TOL})")
+    require(rel <= MODEL_REL_TOL, f"step 0 loss off loss_fn by {rel}")
+    # one more step under the profiler: device time by kernel against the
+    # unprofiled steps' median wall
+    with _profiler(torch) as prof:
+        tr.run(TRAIN_STEPS + 1)
+    _profile_summary(prof, steady / 1e3, top=12)
+    del tr, step_fn, recorded, prof
+    _free(torch)
+    log("  -- (b) python -m repro_torch.launch.train --arch qwen3-1.7b "
+        f"--smoke --steps {RESUME_STEPS}, interrupted at {RESUME_AT} and "
+        "resumed")
+    full, resumed = _resume_runs(torch)
+    log(f"  uninterrupted losses {[round(x, 4) for x in full]}")
+    log(f"  resumed at step {RESUME_AT}: steps {RESUME_AT}-"
+        f"{RESUME_STEPS - 1} bit-equal {resumed == full[RESUME_AT:]}; "
+        f"loss {full[0]:.4f} -> {full[-1]:.4f}")
+    require(resumed == full[RESUME_AT:], "resumed losses differ from the "
+            f"uninterrupted run's: {resumed} vs {full[RESUME_AT:]}")
+    require(full[-1] < full[0], "the launcher's loss did not fall")
+    log(f"  phase 15 wall {time.perf_counter() - t0:.1f}s")
+
+
+def _resume_runs(torch):
+    """The launcher in-process three times, deterministic algorithms on:
+    uninterrupted to RESUME_STEPS; stopped at RESUME_AT (its run cut
+    there, which saves); resumed from that checkpoint. Returns (the
+    uninterrupted run's losses, the resumed run's)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import Trainer
+    out = ROOT / "build" / "phase15"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--arch", "qwen3-1.7b", "--smoke", "--steps", str(RESUME_STEPS)]
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    real_run = Trainer.run
+    try:
+        def main(tag):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                tr = launch_train.main(argv + ["--ckpt-dir", str(out / tag)])
+            log("    " + buf.getvalue().strip().splitlines()[-1])
+            return [h["loss"] for h in tr.history], tr
+        full, _ = main("full")
+        Trainer.run = lambda self, steps=None: real_run(self, RESUME_AT)
+        cut, _ = main("cut")
+        Trainer.run = real_run
+        require(len(cut) == RESUME_AT, f"cut run took {len(cut)} steps")
+        resumed, tr = main("cut")
+        require(len(resumed) == RESUME_STEPS - RESUME_AT,
+                f"resumed run took {len(resumed)} steps")
+    finally:
+        Trainer.run = real_run
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    return full, resumed
+
+
+def _hierarchy(torch, seed, smi, kres):
+    counts, routes = hierarchy_phase(torch, seed)
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        kres[name]["hierarchy_launches"] = counts[name]
+    kres["prefill_attention_paged"]["hierarchy_routes"] = routes[
+        "prefill_attention_paged"]
+
+
+def _disagg_and_launcher(torch, seed, smi, kres):
+    log("== phase 11a: disaggregated prefill/decode (co-located, pipelined "
+        "x2, whole-group, 4 devices, planted fault)")
+    counts = disagg_phase(torch, seed)
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        kres[name]["disagg_launches"] = counts[name]
+    log("== phase 11b: the launcher repro_torch.launch.serve, in-process")
+    for name, row in launcher_phase(torch).items():
+        kres[name]["launcher"] = row
+
+
+def _families(torch, seed, smi, kres):
+    pair, ctx = families_phase(torch, seed)
+    for name, n in pair.items():
+        kres[name]["families_launches"] = {"moonshot-v1-16b-a3b BE": n}
+    kres["decode_attention"]["families_launches"] = ctx
+
+
+def _long_seq(torch, seed, smi, kres):
+    kres["prefill_attention_paged"]["long_seq_launches"] = long_seq_phase(
+        torch, seed)
+
+
+# phases 10-15: each reachable alone through --from; each records what the
+# result line keeps into kres
+LATER_PHASES = {
+    10: ("KV hierarchy and fault plane, LS qwen3-1.7b + BE stablelm-1.6b, "
+         "paged (prefix cache, growth and swap, storm)", _hierarchy),
+    11: ("disaggregated prefill/decode, LS qwen3-1.7b, paged; the launcher "
+         "repro_torch.launch.serve", _disagg_and_launcher),
+    12: ("the MoE, MLA, encoder and vision families (BE moonshot-v1-16b-a3b "
+         "at full width, one MoE layer, deepseek-v2 MLA, whisper-small and "
+         "llama-3.2-vision)", _families),
+    13: ("channel reverse engineering (rtx-a2000, simulated) and the MLP "
+         "hash fit on the card",
+         lambda torch, seed, smi, kres: coloring_phase(torch, seed)),
+    14: ("qwen3-1.7b full width, S 32768: blocked forward vs chunked flash "
+         "prefill", _long_seq),
+    15: ("training: qwen3-1.7b full width at S 4096, remat full; the launcher "
+         "repro_torch.launch.train, interrupted and resumed",
+         lambda torch, seed, smi, kres: train_phase(torch, seed, smi)),
+}
+
+
+def early_phases(torch, args, kres):
+    """Phases 4-9 (the full run only), recording into ``kres``. Returns
+    (the launches of the result line, phase 5's and phase 8c's class
+    metrics), or None where ``--until`` stopped it."""
+    log("== phase 4: qwen3-1.7b full width, paged prefill + decode")
+    model_phase(torch, args.seed)
+
+    log("== phase 5: engine LS qwen3-1.7b + BE stablelm-1.6b, paged, flash")
+    paged_counts, paged_routes, cls = engine_phase(torch, args.seed)
+
+    log("== phase 6: engine LS qwen3-1.7b, dense cache, flash")
+    dense_counts, dense_routes = dense_phase(torch, args.seed)
+    for name, routes in (("prefill_attention_paged", paged_routes),
+                         ("prefill_attention", dense_routes)):
+        kres[name]["routes"] = routes[name]
+    log("== phase 6b: engine LS qwen3-1.7b in f32, dense then paged, flash")
+    f32_counts = f32_engine_phase(torch, args.seed)
+    for name in ("decode_attention_paged", "prefill_attention_paged",
+                 "decode_attention", "prefill_attention"):
+        kres[name]["float32"]["launches"] = f32_counts[name]
+
+    if args.until <= 6:
+        return None
+    log("== phase 7: SGDRC kernels (flash, dual-tenant attention and "
+        "matmul, SPT gather/scatter)")
+    sgdrc_counts, sgdrc_res = sgdrc_phase(torch, args.seed)
+    kres.update(sgdrc_res)
+
+    if args.until <= 7:
+        return None
+    log("== phase 8a: ssd_scan at zamba2-1.2b's mamba2 widths")
+    ssd_counts, kres["ssd_scan"] = ssd_phase(torch, args.seed)
+    log("== phase 8b: zamba2-1.2b full width, f32, forward vs prefill")
+    hybrid_model_phase(torch, args.seed)
+    log("== phase 8c: engine LS zamba2-1.2b + BE rwkv6-7b, dense cache, "
+        "flash")
+    _, ssm_cls = ssm_engine_phase(torch, args.seed)
+
+    if args.until <= 8:
+        return None
+    log("== phase 9: tidal control plane, LS qwen3-1.7b + BE stablelm-1.6b,"
+        " colored paged KV (static, tidal, resplit)")
+    tidal_counts = tidal_phase(torch, args.seed,
+                               cls["LS"]["tbt"]["p99_ms"])
+    for name in ("decode_attention_paged", "prefill_attention_paged"):
+        kres[name]["tidal_launches"] = {
+            mode: c[name] for mode, c in tidal_counts.items()}
+
+    launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
+                                                "prefill_attention_paged")},
+                **{k: dense_counts[k] for k in ("decode_attention",
+                                                "prefill_attention")},
+                **{k: sgdrc_counts[k] for k in sgdrc_res},
+                "ssd_scan": ssd_counts["ssd_scan"]}
+    return launches, cls, ssm_cls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--until", type=int, default=12,
+    ap.add_argument("--until", type=int, default=None,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all twelve ran)")
-    ap.add_argument("--from", dest="start", type=int, default=4,
-                    help="10, 11 or 12: run phases 1-3 and that phase alone "
-                         "(debugging; no result lines)")
+                         "lines are printed only when all fifteen ran)")
+    ap.add_argument("--from", "--start", dest="start", type=int, default=4,
+                    choices=(4, 10, 11, 12, 13, 14, 15),
+                    help="10-15: run phases 1-3 and that phase alone, or "
+                         "through --until (debugging; no result lines)")
     args = ap.parse_args()
+    if args.until is None:
+        args.until = args.start if args.start > 4 else 15
 
     import torch
     if not torch.cuda.is_available():
@@ -3586,103 +4187,19 @@ def main():
 
     if args.until <= 3:
         return 1
-    if args.start > 4:
-        if args.start == 10:
-            log("== phase 10: KV hierarchy and fault plane, LS qwen3-1.7b "
-                "+ BE stablelm-1.6b, paged")
-            hierarchy_phase(torch, args.seed)
-        elif args.start == 11:
-            log("== phase 11a: disaggregated prefill/decode, LS qwen3-1.7b,"
-                " paged")
-            disagg_phase(torch, args.seed)
-            log("== phase 11b: the launcher repro_torch.launch.serve")
-            launcher_phase(torch)
-        elif args.start == 12:
-            log("== phase 12: the MoE, MLA, encoder and vision families")
-            families_phase(torch, args.seed)
-        log(f"== phases 4-{args.start - 1} skipped: no result lines")
+    if args.start == 4:
+        result = early_phases(torch, args, kres)
+        if result is None:
+            return 1
+    for n in range(max(args.start, 10), args.until + 1):
+        title, run = LATER_PHASES[n]
+        log(f"== phase {n}: {title}")
+        run(torch, args.seed, smi, kres)
+    if args.start > 4 or args.until < 15:
+        log(f"== phases {args.start}-{args.until} passed; the others "
+            "skipped: no result lines")
         return 1
-    log("== phase 4: qwen3-1.7b full width, paged prefill + decode")
-    model_phase(torch, args.seed)
-
-    log("== phase 5: engine LS qwen3-1.7b + BE stablelm-1.6b, paged, flash")
-    paged_counts, paged_routes, cls = engine_phase(torch, args.seed)
-
-    log("== phase 6: engine LS qwen3-1.7b, dense cache, flash")
-    dense_counts, dense_routes = dense_phase(torch, args.seed)
-    for name, routes in (("prefill_attention_paged", paged_routes),
-                         ("prefill_attention", dense_routes)):
-        kres[name]["routes"] = routes[name]
-    log("== phase 6b: engine LS qwen3-1.7b in f32, dense then paged, flash")
-    f32_counts = f32_engine_phase(torch, args.seed)
-    for name in ("decode_attention_paged", "prefill_attention_paged",
-                 "decode_attention", "prefill_attention"):
-        kres[name]["float32"]["launches"] = f32_counts[name]
-
-    if args.until <= 6:
-        return 1
-    log("== phase 7: SGDRC kernels (flash, dual-tenant attention and "
-        "matmul, SPT gather/scatter)")
-    sgdrc_counts, sgdrc_res = sgdrc_phase(torch, args.seed)
-    kres.update(sgdrc_res)
-
-    if args.until <= 7:
-        return 1
-    log("== phase 8a: ssd_scan at zamba2-1.2b's mamba2 widths")
-    ssd_counts, kres["ssd_scan"] = ssd_phase(torch, args.seed)
-    log("== phase 8b: zamba2-1.2b full width, f32, forward vs prefill")
-    hybrid_model_phase(torch, args.seed)
-    log("== phase 8c: engine LS zamba2-1.2b + BE rwkv6-7b, dense cache, "
-        "flash")
-    _, ssm_cls = ssm_engine_phase(torch, args.seed)
-
-    if args.until <= 8:
-        return 1
-    log("== phase 9: tidal control plane, LS qwen3-1.7b + BE stablelm-1.6b,"
-        " colored paged KV (static, tidal, resplit)")
-    tidal_counts = tidal_phase(torch, args.seed,
-                               cls["LS"]["tbt"]["p99_ms"])
-    for name in ("decode_attention_paged", "prefill_attention_paged"):
-        kres[name]["tidal_launches"] = {
-            mode: c[name] for mode, c in tidal_counts.items()}
-
-    if args.until <= 9:
-        return 1
-    log("== phase 10: KV hierarchy and fault plane, LS qwen3-1.7b + BE "
-        "stablelm-1.6b, paged (prefix cache, growth and swap, storm)")
-    hier_counts, hier_routes = hierarchy_phase(torch, args.seed)
-    for name in ("decode_attention_paged", "prefill_attention_paged"):
-        kres[name]["hierarchy_launches"] = hier_counts[name]
-    kres["prefill_attention_paged"]["hierarchy_routes"] = hier_routes[
-        "prefill_attention_paged"]
-
-    if args.until <= 10:
-        return 1
-    log("== phase 11a: disaggregated prefill/decode, LS qwen3-1.7b, paged "
-        "(co-located, pipelined x2, whole-group, 4 devices, planted fault)")
-    disagg_counts = disagg_phase(torch, args.seed)
-    for name in ("decode_attention_paged", "prefill_attention_paged"):
-        kres[name]["disagg_launches"] = disagg_counts[name]
-    log("== phase 11b: the launcher repro_torch.launch.serve, in-process")
-    for name, row in launcher_phase(torch).items():
-        kres[name]["launcher"] = row
-
-    if args.until <= 11:
-        return 1
-    log("== phase 12: the MoE, MLA, encoder and vision families (BE "
-        "moonshot-v1-16b-a3b at full width, one MoE layer, deepseek-v2 "
-        "MLA, whisper-small and llama-3.2-vision)")
-    fam_pair, fam_ctx = families_phase(torch, args.seed)
-    for name, n in fam_pair.items():
-        kres[name]["families_launches"] = {"moonshot-v1-16b-a3b BE": n}
-    kres["decode_attention"]["families_launches"] = fam_ctx
-
-    launches = {**{k: paged_counts[k] for k in ("decode_attention_paged",
-                                                "prefill_attention_paged")},
-                **{k: dense_counts[k] for k in ("decode_attention",
-                                                "prefill_attention")},
-                **{k: sgdrc_counts[k] for k in sgdrc_res},
-                "ssd_scan": ssd_counts["ssd_scan"]}
+    launches, cls, ssm_cls = result
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append({"name": name, "route": "cuda", "source": src,

@@ -6,7 +6,8 @@ PCIe bus model and its completely fair scheduler (``pcie``, which the host
 KV tier logs its copies against), the colored arena of
 ``core.coloring``, and the multi-device link model the disaggregated
 engine ships KV page groups over (``interconnect``). These modules are
-copies of the reference's (numpy and the standard library only)."""
+copies of the reference's (numpy and the standard library only), except
+the MLP hash fit of ``core.coloring``, which trains with torch."""
 from . import (coloring, compute, controller, costmodel, interconnect, pcie,
                simulator, tenancy)
 from .compute import ComputePolicy, ElasticMeshPartitioner, LoadSignal

@@ -1,3 +1,3 @@
-from . import attention, common, mlp, transformer
+from . import attention, common, mlp, moe, ssm, transformer
 from .transformer import (decode_step, forward, init_cache, init_params,
-                          prefill, prefill_step)
+                          loss_fn, prefill, prefill_step)

@@ -4,7 +4,9 @@ absorbed-matmul decode over a compressed latent cache) over dense and
 paged caches, and cross-attention (whisper's decoder, the VLM's image
 layers).
 
-Full-sequence paths use a grouped einsum (no KV-head repeat). The cached
+Full-sequence paths use a grouped einsum (no KV-head repeat), and above
+``BLOCKED_THRESHOLD`` tokens the query-blocked loop of
+:func:`blocked_attention`, whose scores never exceed one block's. The cached
 paths keep the reference's ``use_flash`` seam: when it is set and the layer
 has no softcap and no local window, the attention core is the CUDA
 flash-decode / chunked-prefill kernel (via :mod:`repro_torch.kernels.ops`;
@@ -93,6 +95,57 @@ def init_cross_attn(seed, path, cfg, kv_dim, dtype, device, lead=()):
 # core grouped attention
 # ---------------------------------------------------------------------------
 
+BLOCKED_THRESHOLD = 2048   # use q-blocked attention above this seq length
+
+
+def blocked_attention(q, k, v, *, causal=True, window=None, cap=None,
+                      q_offset=0, block_q=512):
+    """Memory-bounded attention: a loop over query blocks with the full K/V
+    resident (scores never exceed [B,Hkv,G,block_q,Skv], f32). GQA without
+    KV repeat. This is the long-sequence path (prefill_32k / train_4k).
+
+    The last block is shorter where ``block_q`` does not divide Sq (the
+    reference asserts there). Under ``causal`` a block reads only the keys
+    up to its last query's position: the columns past it are masked for
+    every row of the block, and a masked score adds exactly 0 to the
+    softmax and to P·V (a block whose first row precedes position 0 reads
+    every key). One Python loop over the blocks serves both of the
+    reference's lowerings (its ``unroll``, which changes no number)."""
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    block_q = min(block_q, Sq)
+    qg = q.reshape(B, Sq, Hkv, G, Dh)
+    kh = k.float().permute(0, 2, 1, 3)              # [B,Hkv,Skv,Dh]
+    vh = v.float().permute(0, 2, 1, 3)              # [B,Hkv,Skv,Dv]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    outs = []
+    for start in range(0, Sq, block_q):
+        n = min(block_q, Sq - start)
+        q_pos = torch.arange(start, start + n,
+                             device=q.device)[:, None] + q_offset
+        # a row before position 0 has every key masked (a uniform softmax
+        # over all Skv keys), so such a block reads them all
+        hi = (min(Skv, start + n + q_offset)
+              if causal and start + q_offset >= 0 else Skv)
+        s = torch.einsum("bqhgd,bhkd->bhgqk",
+                         qg[:, start:start + n].float(),
+                         kh[:, :, :hi]) * (Dh ** -0.5)
+        if cap is not None:
+            s = softcap(s, cap)
+        mask = torch.ones((n, hi), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[:, :hi] <= q_pos
+        if window is not None:
+            mask &= k_pos[:, :hi] > q_pos - window
+        w = _masked_softmax(s, mask[None, None, None])
+        outs.append(torch.einsum("bhgqk,bhkd->bqhgd",
+                                 w.to(v.dtype).float(), vh[:, :, :hi]))
+        del s, w                    # one block's scores live at a time
+    out = torch.cat(outs, dim=1)
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
 def _masked_softmax(scores, mask):
     scores = torch.where(mask, scores,
                          torch.tensor(NEG_INF, device=scores.device))
@@ -146,13 +199,17 @@ def gqa_forward(p, x, cfg, *, layer_kind="global", positions=None,
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _proj_qkv(p, x, cfg, positions)
     window = cfg.local_window if (layer_kind == "local" and causal) else None
-    if not causal:
-        mask = None
-    elif window:
-        mask = local_mask(S, S, window, device=x.device)
+    if S > BLOCKED_THRESHOLD:
+        out = blocked_attention(q, k, v, causal=causal, window=window,
+                                cap=cfg.attn_logit_softcap)
     else:
-        mask = causal_mask(S, S, device=x.device)
-    out = grouped_attention(q, k, v, mask, cfg.attn_logit_softcap)
+        if not causal:
+            mask = None
+        elif window:
+            mask = local_mask(S, S, window, device=x.device)
+        else:
+            mask = causal_mask(S, S, device=x.device)
+        out = grouped_attention(q, k, v, mask, cfg.attn_logit_softcap)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -399,8 +456,11 @@ def mla_forward(p, x, cfg, *, positions=None, causal=True, **_):
     ratio = (d_eff ** -0.5) / (q_full.shape[-1] ** -0.5)
     if abs(ratio - 1.0) > 1e-9:
         q_full = q_full * ratio
-    mask = causal_mask(S, S, device=x.device) if causal else None
-    out = grouped_attention(q_full, k_full, v, mask)
+    if S > BLOCKED_THRESHOLD:
+        out = blocked_attention(q_full, k_full, v, causal=causal)
+    else:
+        mask = causal_mask(S, S, device=x.device) if causal else None
+        out = grouped_attention(q_full, k_full, v, mask)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

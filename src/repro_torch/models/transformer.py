@@ -11,6 +11,7 @@ cross-attention layers over image features).
 Entry points:
     init_params(cfg, seed, device, dtype)   -> params dict
     forward(params, cfg, batch)             -> (logits, aux)
+    loss_fn(params, cfg, batch)             -> (loss, metrics)
     init_cache(cfg, B, max_seq)             -> cache dict
     init_paged_cache(cfg, n_pages, page)    -> page-pool cache dict
     decode_step(params, cfg, token, cache, pos, ctx_extra) -> (logits, cache)
@@ -27,7 +28,10 @@ returns the reference's aux dict (``z_loss``, ``lb_loss``,
 Params and caches keep the reference's structure: ``embed``, ``final_ln``,
 optional ``unembed``, the ``prefix`` list, and ``layers`` whose leaves are
 stacked ``[n_periods, ...]``. The layer stack is a Python loop over the
-periods (the reference scans), indexing each stacked leaf; caches are
+periods (the reference scans), indexing each stacked leaf; without a cache
+and with grad enabled, ``cfg.remat`` checkpoints each period ("full":
+recompute it in the backward pass; "dots": keep its matrix products),
+as the reference's ``jax.checkpoint`` of the scan body does. Caches are
 written in place through those views (attention writes into them; SSM
 layers compute new state, conv and shift tensors, which are copied in).
 Hybrids keep the shared block's params in ``shared`` and its KV cache in
@@ -359,6 +363,17 @@ def _at(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
+def _periods(tree, n):
+    """The ``n`` periods' slices of a tree of stacked ``[n, ...]`` leaves
+    (dicts of tensors), one ``unbind`` a leaf: under autograd its backward
+    stacks the periods' gradients once, where indexing each period would
+    write a zero-filled gradient of the whole stacked leaf per period."""
+    if isinstance(tree, dict):
+        per = {k: _periods(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _aux0(cfg, device):
     if cfg.moe:
         return {k: torch.zeros((), dtype=torch.float32, device=device)
@@ -381,19 +396,63 @@ def _apply_stack(params, cfg, x, ctx, cache=None, pos=None):
     if cfg.encoder:
         ctx = dict(ctx, cross_p=params["cross"])
     n_shared_per = max(1, sum(1 for k in period if k.endswith(SHARED_SUFFIX)))
-    for i in range(n_periods):
+
+    layers = _periods(params["layers"], n_periods) if n_periods else []
+
+    def body(x, aux, i):
+        aux = dict(aux)             # a recomputation adds into its own copy
         shared_i = 0
         for j, kind in enumerate(period):
             c = _at(cache["layers"][f"s{j}"], i) if cache is not None else None
-            x = _apply_one(_at(params["layers"][f"s{j}"], i), x, cfg, kind,
-                           ctx, c, pos, aux, i)
+            x = _apply_one(layers[i][f"s{j}"], x, cfg, kind, ctx, c, pos,
+                           aux, i)
             if kind.endswith(SHARED_SUFFIX):
                 sc = (_at(cache["layers"]["shared"], i) if cache is not None
                       else None)
                 x = _shared_block(params["shared"], x, ctx["x0"], cfg,
                                   i * n_shared_per + shared_i, ctx, sc, pos)
                 shared_i += 1
+        return x, aux
+
+    if cache is None:
+        body = _remat(cfg, body)
+    for i in range(n_periods):
+        x, aux = body(x, aux, i)
     return x, aux, cache
+
+
+# the matrix products a "dots" period keeps for the backward pass (the
+# reference's ``dots_with_no_batch_dims_saveable``); the rest is recomputed
+_DOTS = ("mm", "bmm", "addmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    saved = {getattr(torch.ops.aten, n).default for n in _DOTS}
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, body):
+    """``cfg.remat`` on a period's body: "full" recomputes the whole period
+    in the backward pass, "dots" keeps its matrix products and recomputes
+    the rest. Where autograd records nothing (no grad), it is the body."""
+    if cfg.remat == "none":
+        return body
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+
+    def wrapped(x, aux, i):
+        if not torch.is_grad_enabled():
+            return body(x, aux, i)
+        return checkpoint(body, x, aux, i, use_reentrant=False, **kw)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +522,28 @@ def forward(params, cfg: ModelConfig, batch, last_only: bool = False):
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token NLL in f32 (through logsumexp), plus the MoE aux losses
+    over ``num_layers``. Returns (loss, metrics) with ``nll``, ``loss``
+    and, for MoE configs, ``z_loss``, ``lb_loss`` and ``dropped_frac``."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None])[..., 0]
+    nll = torch.mean(lse - gold)
+    loss = nll
+    metrics = {"nll": nll}
+    for k in ("z_loss", "lb_loss"):
+        if k in aux:
+            loss = loss + aux[k] / max(cfg.num_layers, 1)
+            metrics[k] = aux[k]
+    if "dropped_frac" in aux:
+        metrics["dropped_frac"] = aux["dropped_frac"] / max(cfg.num_layers, 1)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _layer_cache(cfg, kind, lead, S, dtype, device):

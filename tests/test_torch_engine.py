@@ -221,11 +221,16 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 def test_port_never_imports_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 4
+    files += examples
     assert len(files) > 20
     bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert bad == []
     code = ("import sys; import repro_torch, repro_torch.serving.engine, "
             "repro_torch.serving.disagg, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.train, "
+            "repro_torch.core.coloring, "
             "repro_torch.kernels.ops, repro_torch.bridge; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
