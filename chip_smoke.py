@@ -234,6 +234,26 @@ non-zero:
              deterministic algorithms on: stopped at step 8 and resumed,
              its steps 8-15 losses bit-equal to an uninterrupted run, the
              last loss below the first.
+16. sharding — (a) qwen3-1.7b at full width in 15a's setting (f32
+             params, bf16 activations, remat "full", S 4096 x 1), 3
+             ``Trainer`` steps with no mesh and then on a 1x1 (data,
+             model) mesh of an NCCL group of one rank (DTensor params,
+             ZeRO-1 moments, batches placed over the batch axes), from the
+             same seed and batches, deterministic algorithms on for both:
+             step 0's loss within SHARD_LOSS_TOL (bit-equal), the later
+             steps' within SHARD_STEP_TOL (one rounding step of a gradient
+             leaf, carried by AdamW), bit equality printed, step ms and
+             peak beside the card; (b) the unsharded run's params
+             checkpointed and restored onto the mesh
+             (``restore(shardings=...)``): every leaf's ``full_tensor()``
+             bit-equal; (c) ``python -m repro_torch.launch.dryrun`` at full
+             width, qwen3-1.7b ``train_4k`` on the fake 16x16 mesh and
+             deepseek-v2-236b ``decode_32k`` on the fake 2x16x16 mesh, each
+             in a subprocess on the host (a fake group cannot share a
+             process with NCCL), started first and read last: each
+             records ``ok``; per-device argument and temp GiB, FLOPs and
+             wire bytes by kind printed. The process group is destroyed
+             at the end of the phase.
 
 Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9-12 are read with the
 counters set to 0 just before each phase drives its path (phases 7 and 8a
@@ -246,13 +266,14 @@ two paged rows, phase 11b's launches by flag set and their worst error
 under "launcher" of the four engine kernels' rows, phase 12's under
 "families_launches" of rows 1-3, phase 14's under "long_seq_launches" of
 row 2); the last line is the device JSON. ``--from N`` (or ``--start
-N``), N in 10-15, runs phases 1-3 and phase N alone, or N through
+N``), N in 10-16, runs phases 1-3 and phase N alone, or N through
 ``--until``; ``--until N`` stops after phase N (no result lines either
 way).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -3989,42 +4010,217 @@ def _resume_runs(torch):
     uninterrupted to RESUME_STEPS; stopped at RESUME_AT (its run cut
     there, which saves); resumed from that checkpoint. Returns (the
     uninterrupted run's losses, the resumed run's)."""
-    import contextlib
     import io
-    import os
     import shutil
     from repro_torch.launch import train as launch_train
     from repro_torch.train.trainer import Trainer
     out = ROOT / "build" / "phase15"
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--arch", "qwen3-1.7b", "--smoke", "--steps", str(RESUME_STEPS)]
+    real_run = Trainer.run
+
+    def main(tag):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tr = launch_train.main(argv + ["--ckpt-dir", str(out / tag)])
+        log("    " + buf.getvalue().strip().splitlines()[-1])
+        return [h["loss"] for h in tr.history], tr
+    try:
+        with _deterministic(torch):
+            full, _ = main("full")
+            Trainer.run = lambda self, steps=None: real_run(self, RESUME_AT)
+            cut, _ = main("cut")
+            Trainer.run = real_run
+            require(len(cut) == RESUME_AT, f"cut run took {len(cut)} steps")
+            resumed, tr = main("cut")
+            require(len(resumed) == RESUME_STEPS - RESUME_AT,
+                    f"resumed run took {len(resumed)} steps")
+    finally:
+        Trainer.run = real_run
+    return full, resumed
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Deterministic algorithms (and cuBLAS's fixed workspace) inside,
+    restored on the way out: the atomics of an index_put's backward and
+    of split reductions otherwise order their sums run by run."""
+    import os
     cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
-    real_run = Trainer.run
     try:
-        def main(tag):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                tr = launch_train.main(argv + ["--ckpt-dir", str(out / tag)])
-            log("    " + buf.getvalue().strip().splitlines()[-1])
-            return [h["loss"] for h in tr.history], tr
-        full, _ = main("full")
-        Trainer.run = lambda self, steps=None: real_run(self, RESUME_AT)
-        cut, _ = main("cut")
-        Trainer.run = real_run
-        require(len(cut) == RESUME_AT, f"cut run took {len(cut)} steps")
-        resumed, tr = main("cut")
-        require(len(resumed) == RESUME_STEPS - RESUME_AT,
-                f"resumed run took {len(resumed)} steps")
+        yield
     finally:
-        Trainer.run = real_run
         torch.use_deterministic_algorithms(False)
         if cublas is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
-    return full, resumed
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the sharding layer
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 3
+# the 1x1 mesh's losses against no mesh's. Step 0 (the forward before any
+# update) runs the same ops on the same values: bit-equal. After an update
+# they differ by what one rounding step in a few gradient leaves makes of
+# the loss: DTensor's dispatch hands einsum's products other operand
+# layouts, so some bf16 products round the other way, and AdamW carries
+# that into the params (steps 1-2: 9.4e-6 and 1.1e-5 relative, PERF.md)
+SHARD_LOSS_TOL = 1e-6
+SHARD_STEP_TOL = 1e-4
+# the dry run's cells at full width, each in a subprocess of its own (a
+# fake process group cannot share a process with NCCL)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
+                ("deepseek-v2-236b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 900
+
+
+def _dryrun_procs(out):
+    """Start the DRYRUN_CELLS as ``python -m repro_torch.launch.dryrun``
+    subprocesses on the host (no card), all at once; returns them with
+    their record paths."""
+    import os
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
+               "--force"]
+        procs.append((cmd, out / f"{arch}__{shape}__{mesh}.json",
+                      subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _train_losses(torch, cfg, dc, seed, mesh, ckpt_dir=None):
+    """SHARD_STEPS ``Trainer`` steps (on ``mesh``, or none); returns the
+    trainer, its losses, step ms and peak GiB."""
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    _free(torch)
+    tr = Trainer(cfg, dc, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                      total_steps=SHARD_STEPS),
+                 TrainerConfig(steps=SHARD_STEPS), seed=seed, device="cuda",
+                 mesh=mesh)
+    hist = tr.run()
+    torch.cuda.synchronize()
+    return (tr, [h["loss"] for h in hist],
+            [round(h["time_s"] * 1e3, 1) for h in hist], _peak_gib(torch))
+
+
+def sharding_phase(torch, seed, smi):
+    """Phase 16: (a) qwen3-1.7b at full width in phase 15's setting, a
+    ``Trainer`` with no mesh, then one on a 1x1 mesh of an NCCL group of
+    one rank, from the same seed and batches, each with deterministic
+    algorithms: step 0's loss within SHARD_LOSS_TOL, the later steps'
+    within SHARD_STEP_TOL (see there); (b) the unsharded trainer's params, checkpointed,
+    restored onto the mesh (``restore(shardings=...)``): every leaf's
+    ``full_tensor()`` bit-equal; (c) the dry run at full width, each of
+    DRYRUN_CELLS in its own subprocess on the host, started first and
+    read last: each records ``ok``."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import param_pspecs
+    from repro_torch.launch.mesh import local_group, make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import DataConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import leaves
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "phase16"
+    shutil.rmtree(out, ignore_errors=True)
+    procs = _dryrun_procs(out / "dryrun")
+    cfg = get_config("qwen3-1.7b").replace(remat="full")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=1, seed=seed)
+    with _deterministic(torch):
+        tr, plain, plain_ms, plain_peak = _train_losses(torch, cfg, dc, seed,
+                                                        None)
+    ckpt.save(str(out / "ckpt"), SHARD_STEPS, {"params": tr.params})
+    del tr
+    with local_group("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with _deterministic(torch):
+            tr, sharded, sharded_ms, sharded_peak = _train_losses(
+                torch, cfg, dc, seed, mesh)
+        log(f"  (a) qwen3-1.7b full width, f32 params, bf16 activations, "
+            f"remat full, S {TRAIN_SEQ} x 1, {SHARD_STEPS} steps, "
+            f"deterministic algorithms on for both; {smi}")
+        log(f"  no mesh: losses {plain}, step ms {plain_ms}, peak "
+            f"{plain_peak:.2f} GiB")
+        log(f"  1x1 mesh (NCCL, DTensor): losses {sharded}, step ms "
+            f"{sharded_ms}, peak {sharded_peak:.2f} GiB")
+        rel = [abs(a - b) / abs(b) for a, b in zip(sharded, plain)]
+        log(f"  losses bit-equal {sharded == plain} (step 0 "
+            f"{sharded[0] == plain[0]}); rel by step "
+            f"{[f'{x:.3e}' for x in rel]} (tol {SHARD_LOSS_TOL} at step 0, "
+            f"{SHARD_STEP_TOL} after an update)")
+        require(rel[0] <= SHARD_LOSS_TOL and max(rel[1:]) <= SHARD_STEP_TOL,
+                f"1x1 mesh losses off no mesh's by {rel}")
+        placed = tr.params["embed"]
+        require(hasattr(placed, "placements"), "the mesh trainer's params "
+                                               "are not DTensors")
+        del tr
+        _free(torch)
+        like = {"params": tf.init_params(cfg, seed, "meta")}
+        t1 = time.perf_counter()
+        want, _ = ckpt.restore(str(out / "ckpt"), SHARD_STEPS,
+                               _on_cuda(torch, like))
+        got, _ = ckpt.restore(str(out / "ckpt"), SHARD_STEPS,
+                              _on_cuda(torch, like),
+                              shardings={"params": param_pspecs(
+                                  like["params"], mesh)})
+        equal = [torch.equal(a.full_tensor(), b)
+                 for a, b in zip(leaves(got), leaves(want))]
+        log(f"  (b) the unsharded checkpoint restored onto the 1x1 mesh "
+            f"({time.perf_counter() - t1:.1f}s): {len(equal)} leaves, "
+            f"all DTensors {all(hasattr(x, 'placements') for x in leaves(got))}"
+            f", full_tensor() bit-equal {all(equal)}")
+        require(all(equal), "a resharded leaf differs from the checkpoint")
+        del got, want
+        _free(torch)
+    t1 = time.perf_counter()
+    for cmd, path, p in procs:
+        try:
+            _, err = p.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for _, _, q in procs:
+                q.kill()
+            require(False, f"dry run over {DRYRUN_TIMEOUT}s: {cmd}")
+        require(p.returncode == 0 and path.exists(),
+                f"dry run failed: {cmd}: {err[-2000:]}")
+        rec = json.loads(path.read_text())
+        require(rec["ok"], f"dry run cell not ok: {rec.get('error')}\n"
+                           f"{rec.get('traceback', '')[-2500:]}")
+        m = rec["main"]
+        mem, coll = m["memory"], m["collectives"]
+        log(f"  (c) {rec['arch']} {rec['shape']} on {rec['n_devices']} "
+            f"ranks ({rec['mesh']}), traced in {rec['elapsed_s']}s: per "
+            f"device argument {mem['argument_bytes'] / 2 ** 30:.3f} GiB, "
+            f"temp {mem['temp_bytes'] / 2 ** 30:.3f} GiB (of the H100's "
+            f"80 GB: {(mem['argument_bytes'] + mem['temp_bytes']) / 80e9:.3f}"
+            f"), output {mem['output_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{m['flops']:.4e} FLOPs, bytes accessed "
+            f"{m['bytes_accessed']:.4e}; collectives {coll['counts']}, "
+            f"wire bytes {coll['wire_bytes']}; temp at its peak by op (GiB) "
+            f"{ {k: round(v / 2 ** 30, 3) for k, v in mem.get('temp_by_op', {}).items()} }")
+    log(f"  (c) waited {time.perf_counter() - t1:.1f}s for the dry run")
+    log(f"  phase 16 wall {time.perf_counter() - t0:.1f}s")
+
+
+def _on_cuda(torch, tree):
+    """A meta tree as zeros on the card (the shapes and dtypes a restore
+    casts to)."""
+    from repro_torch.train.tree import leaves, unflatten
+    return unflatten(tree, [torch.zeros(x.shape, dtype=x.dtype,
+                                        device="cuda") for x in leaves(tree)])
 
 
 def _hierarchy(torch, seed, smi, kres):
@@ -4058,7 +4254,7 @@ def _long_seq(torch, seed, smi, kres):
         torch, seed)
 
 
-# phases 10-15: each reachable alone through --from; each records what the
+# phases 10-16: each reachable alone through --from; each records what the
 # result line keeps into kres
 LATER_PHASES = {
     10: ("KV hierarchy and fault plane, LS qwen3-1.7b + BE stablelm-1.6b, "
@@ -4076,6 +4272,10 @@ LATER_PHASES = {
     15: ("training: qwen3-1.7b full width at S 4096, remat full; the launcher "
          "repro_torch.launch.train, interrupted and resumed",
          lambda torch, seed, smi, kres: train_phase(torch, seed, smi)),
+    16: ("the sharding layer: qwen3-1.7b trained on a 1x1 NCCL mesh vs no "
+         "mesh, a resharded restore, the dry run at full width on fake "
+         "256- and 512-rank meshes",
+         lambda torch, seed, smi, kres: sharding_phase(torch, seed, smi)),
 }
 
 
@@ -4141,14 +4341,14 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--until", type=int, default=None,
                     help="stop after this phase (debugging; the result "
-                         "lines are printed only when all fifteen ran)")
+                         "lines are printed only when all sixteen ran)")
     ap.add_argument("--from", "--start", dest="start", type=int, default=4,
-                    choices=(4, 10, 11, 12, 13, 14, 15),
-                    help="10-15: run phases 1-3 and that phase alone, or "
+                    choices=(4, 10, 11, 12, 13, 14, 15, 16),
+                    help="10-16: run phases 1-3 and that phase alone, or "
                          "through --until (debugging; no result lines)")
     args = ap.parse_args()
     if args.until is None:
-        args.until = args.start if args.start > 4 else 15
+        args.until = args.start if args.start > 4 else 16
 
     import torch
     if not torch.cuda.is_available():
@@ -4195,7 +4395,7 @@ def main():
         title, run = LATER_PHASES[n]
         log(f"== phase {n}: {title}")
         run(torch, args.seed, smi, kres)
-    if args.start > 4 or args.until < 15:
+    if args.start > 4 or args.until < 16:
         log(f"== phases {args.start}-{args.until} passed; the others "
             "skipped: no result lines")
         return 1
@@ -4205,7 +4405,8 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         **kres[name]})
-    log(f"== all phases passed in {time.perf_counter() - t_start:.1f}s; "
+    log(f"== all sixteen phases passed in "
+        f"{time.perf_counter() - t_start:.1f}s; "
         f"{smi}; engine _class tokens/s LS "
         f"{cls['LS']['tokens_per_s']} BE {cls['BE']['tokens_per_s']}; "
         f"SSM engine LS {ssm_cls['LS']['tokens_per_s']} BE "

@@ -1,0 +1,204 @@
+"""Multi-pod dry run (``repro.launch.dryrun`` on DTensor): trace one step of
+every (architecture x input-shape) cell on the production meshes (16x16
+single-pod, 2x16x16 multi-pod), each rank's view, and record memory, FLOP
+and collective metrics.
+
+The reference lowers and compiles each cell on 512 fake XLA devices. Here a
+fake process group of 256 or 512 ranks lives in this one process
+(``launch.mesh.fake_group``), the cell's params, optimizer state, batch and
+cache are meta DTensors placed by the reference's rules, and the step runs
+once under :func:`~repro_torch.launch.hlo_metrics.traced_metrics`: shapes
+and collectives are real, values are never computed, nothing is allocated.
+
+The reference's probes (small unrolled models whose metrics are scaled up,
+because XLA's cost analysis counts a ``scan`` body once) have no use here:
+the port has no scan, so the trace counts every layer and every SSM chunk.
+A record's ``scaled`` field is therefore the traced totals themselves, and
+no ``ssm_correction`` is applied; ``--no-probes`` is accepted and changes
+nothing.
+
+Usage:
+    python -m repro_torch.launch.dryrun                  # all cells, both meshes
+    python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k
+    python -m repro_torch.launch.dryrun --mesh multi --force
+Artifacts: artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json  (resumable)
+"""
+import argparse
+import json
+import os
+import time
+import traceback
+
+from ..configs import SHAPES, dryrun_cells, get_config
+from ..configs.base import ModelConfig, ShapeConfig
+from ..train.optimizer import AdamWConfig
+
+ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "artifacts", "dryrun_torch")
+
+
+def cell_mode(shape: ShapeConfig) -> str:
+    return {"train": "train", "prefill": "prefill", "decode": "decode"}[
+        shape.kind]
+
+
+def tune_config(cfg: ModelConfig, mode: str, *, probe: bool = False,
+                overrides: dict | None = None) -> ModelConfig:
+    import dataclasses as _dc
+    from ..core.costmodel import param_count
+    big = param_count(cfg) > 2e10
+    kw = dict(scan_layers=not probe)
+    if mode == "train":
+        kw.update(param_dtype="float32", activation_dtype="bfloat16",
+                  remat="full" if big else "dots")
+    else:
+        kw.update(param_dtype="bfloat16", activation_dtype="bfloat16",
+                  remat="none")
+    if overrides:
+        ov = dict(overrides)
+        if "capacity_factor" in ov and cfg.moe:
+            kw["moe"] = _dc.replace(cfg.moe,
+                                    capacity_factor=float(ov.pop("capacity_factor")))
+        kw.update(ov)
+    return cfg.replace(**kw)
+
+
+def place_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str):
+    """(step, args): the cell's step function and its arguments as meta
+    DTensors on ``mesh``, placed by the reference's rules (params by
+    ``param_pspecs``, moments by ``zero1_pspecs``, error feedback as the
+    params, batches and caches by ``input_specs``). A decode step writes
+    the cache's last slot (``pos = seq_len - 1``), so it attends over the
+    whole window."""
+    from ..dist.sharding import distribute
+    from ..train.optimizer import OptState
+    from .specs import abstract_state, input_specs, make_steps
+    train_step, prefill_step, serve_step = make_steps(cfg, AdamWConfig())
+    params, pspecs, opt, ospecs, err = abstract_state(cfg, mesh)
+    params = distribute(params, pspecs)
+    if mode == "train":
+        opt = OptState(distribute(opt.m, ospecs.m),
+                       distribute(opt.v, ospecs.v), opt.count)
+        batch, bshards = input_specs(cfg, shape, mesh, "train")
+        return train_step, (params, opt, distribute(err, pspecs),
+                            distribute(batch, bshards))
+    if mode == "prefill":
+        batch, bshards = input_specs(cfg, shape, mesh, "prefill")
+        return prefill_step, (params, distribute(batch, bshards))
+    (token, cache, extras), (tsh, csh, esh) = input_specs(
+        cfg, shape, mesh, "decode")
+    return serve_step, (params, distribute(token, tsh),
+                        distribute(cache, csh), shape.seq_len - 1,
+                        distribute(extras, esh))
+
+
+def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str):
+    """Trace the cell's step once on ``mesh``; returns
+    ``traced_metrics``'s dict (per device)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from ..dist.sharding import use_mesh
+    from .hlo_metrics import traced_metrics
+    with use_mesh(mesh), implicit_replication():
+        step, args = place_cell(cfg, shape, mesh, mode)
+        metrics, _ = traced_metrics(step, *args)
+    return metrics
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str,
+             probes: bool = True, out_dir: str = ART_DIR,
+             force: bool = False, overrides: dict | None = None,
+             tag: str = "") -> dict:
+    from .mesh import fake_group, make_production_mesh
+    os.makedirs(out_dir, exist_ok=True)
+    fname = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_kind}{tag}.json")
+    if os.path.exists(fname) and not force:
+        with open(fname) as f:
+            return json.load(f)
+    shape = SHAPES[shape_name]
+    base = get_config(arch)
+    mode = cell_mode(shape)
+    n_dev = 512 if mesh_kind == "multi" else 256
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "mode": mode, "n_devices": n_dev, "ok": False, "tag": tag}
+    t0 = time.time()
+    try:
+        with fake_group(n_dev):
+            mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+            cfg = tune_config(base, mode, overrides=overrides)
+            m = trace_cell(cfg, shape, mesh, mode)
+        rec["main"] = m
+        rec["n_periods"] = ((base.num_layers - base.n_prefix)
+                            / base.probe_period)
+        coll = m["collectives"]
+        rec["scaled"] = {
+            "flops": m["flops"], "bytes_accessed": m["bytes_accessed"],
+            "collective_wire_bytes": coll["total_wire_bytes"],
+            "collective_wire_bytes_by_kind": dict(coll["wire_bytes"])}
+        rec["probes"] = "none: every layer and SSM chunk is traced"
+        rec["ok"] = True
+    except Exception as e:
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+    rec["elapsed_s"] = round(time.time() - t0, 1)
+    with open(fname, "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="both", choices=["single", "multi",
+                                                       "both"])
+    ap.add_argument("--out", default=ART_DIR)
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--no-probes", action="store_true",
+                    help="accepted; the trace needs no probes")
+    ap.add_argument("--tag", default="", help="artifact suffix (perf iters)")
+    ap.add_argument("--attn-fallback", default="headdim",
+                    choices=["headdim", "replicate"])
+    ap.add_argument("--set", action="append", default=[],
+                    help="cfg override k=v (e.g. remat=dots)")
+    args = ap.parse_args(argv)
+
+    from ..dist.sharding import set_attn_fallback
+    set_attn_fallback(args.attn_fallback)
+    overrides = {}
+    for kv in args.set:
+        k, v = kv.split("=", 1)
+        overrides[k] = {"true": True, "false": False}.get(
+            v.lower(), int(v) if v.isdigit() else v)
+
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    results = []
+    for cfg, shape, ok, why in dryrun_cells():
+        if args.arch and cfg.name != args.arch:
+            continue
+        if args.shape and shape.name != args.shape:
+            continue
+        if not ok:
+            print(f"SKIP  {cfg.name:24s} {shape.name:12s} -- {why}")
+            continue
+        for mk in meshes:
+            t0 = time.time()
+            rec = run_cell(cfg.name, shape.name, mk,
+                           probes=not args.no_probes, out_dir=args.out,
+                           force=args.force, overrides=overrides or None,
+                           tag=args.tag)
+            status = "ok" if rec["ok"] else "FAIL"
+            mem = rec.get("main", {}).get("memory", {})
+            print(f"{status:5s} {cfg.name:24s} {shape.name:12s} {mk:6s} "
+                  f"args={mem.get('argument_bytes', 0)/2**30:8.2f}GiB/dev "
+                  f"temp={mem.get('temp_bytes', 0)/2**30:7.2f}GiB/dev "
+                  f"({time.time()-t0:6.1f}s)", flush=True)
+            if not rec["ok"]:
+                print("      " + rec["error"].splitlines()[0][:160], flush=True)
+            results.append(rec)
+    n_ok = sum(r["ok"] for r in results)
+    print(f"\n{n_ok}/{len(results)} cells traced")
+    return results
+
+
+if __name__ == "__main__":
+    main()

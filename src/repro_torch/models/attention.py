@@ -293,7 +293,7 @@ def gqa_decode(p, x, cfg, cache_k, cache_v, pos, *, layer_kind="global",
     positions = pos_t.reshape(-1).expand(B)[:, None]
     q, k, v = _proj_qkv(p, x, cfg, positions)        # k,v: [B,1,Hkv,Dh]
     if pos_t.dim() == 0:
-        p0 = int(pos_t)
+        p0 = pos if isinstance(pos, int) else int(pos_t)
         if 0 <= p0 < Smax:
             cache_k[:, :, p0] = k[:, 0].to(cache_k.dtype)
             cache_v[:, :, p0] = v[:, 0].to(cache_v.dtype)
@@ -500,7 +500,7 @@ def mla_decode(p, x, cfg, cache_ckv, cache_krope, pos, **_):
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
     if pos_t.dim() == 0:
-        p0 = int(pos_t)
+        p0 = pos if isinstance(pos, int) else int(pos_t)
         if 0 <= p0 < Smax:
             cache_ckv[:, p0] = c_kv[:, 0].to(cache_ckv.dtype)
             cache_krope[:, p0] = k_rope[:, 0].to(cache_krope.dtype)

@@ -6,7 +6,9 @@ Parameters are plain nested dicts of tensors. Initializers take an explicit
 path (crc32, stable across processes), so init is order-independent and
 reproducible. They give other numbers than ``jax.random`` from the same seed:
 tests that compare with the reference hand both sides the same weights
-through :mod:`repro_torch.bridge`.
+through :mod:`repro_torch.bridge`. On ``device="meta"`` they draw nothing
+and give the leaf's shape and dtype alone (the dry run's abstract params,
+the reference's ``jax.eval_shape`` of its init).
 """
 from __future__ import annotations
 
@@ -40,11 +42,17 @@ def leaf_generator(seed: int, path: str, device) -> torch.Generator:
     return g
 
 
+def _meta(device) -> bool:
+    return torch.device(device).type == "meta"
+
+
 def dense_init(seed: int, path: str, shape, dtype, device,
                fan_in: int | None = None):
     """Truncated-normal init scaled by 1/sqrt(fan_in). ``fan_in`` defaults
     to ``shape[-2]`` (``shape[-1]`` for vectors); a stacked
     ``[n_periods, ...]`` leaf passes the per-layer fan-in."""
+    if _meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     if fan_in is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     x = torch.empty(shape, dtype=torch.float32, device=device)
@@ -62,6 +70,8 @@ def dense_init_sliced(seed: int, path: str, lead, shape, dtype, device):
     in f32 whole."""
     lead, shape = tuple(lead), tuple(shape)
     out = torch.empty(lead + shape, dtype=dtype, device=device)
+    if _meta(device):
+        return out
     flat = out.view((-1,) + shape)
     for i in range(flat.shape[0]):
         flat[i] = dense_init(seed, f"{path}/{i}", shape, dtype, device)
@@ -69,6 +79,8 @@ def dense_init_sliced(seed: int, path: str, lead, shape, dtype, device):
 
 
 def embed_init(seed: int, path: str, shape, dtype, device):
+    if _meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, dtype=torch.float32, device=device,
                     generator=leaf_generator(seed, path, device))
     return (x * shape[-1] ** -0.5).to(dtype)

@@ -1,8 +1,6 @@
 """Model inputs (``repro.models.io`` in PyTorch): the fields every model
-takes and concrete batches drawn from an explicit ``torch.Generator``.
-
-The reference's ``abstract_batch`` (shape stand-ins for its XLA dry run)
-has no counterpart yet: it waits for the dry run's port.
+takes, concrete batches drawn from an explicit ``torch.Generator``, and
+abstract ones on the meta device (the dry run's stand-ins, no allocation).
 """
 from __future__ import annotations
 
@@ -43,3 +41,10 @@ def make_batch(cfg: ModelConfig, B: int, S: int, generator: torch.Generator,
             out[name] = torch.randn(shape, generator=generator, device=dev,
                                     dtype=torch.float32).to(dtype)
     return out
+
+
+def abstract_batch(cfg: ModelConfig, B: int, S: int, with_labels=True):
+    """Every field of :func:`batch_fields` as an empty meta tensor of its
+    shape and dtype."""
+    return {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, shape, dtype in batch_fields(cfg, B, S, with_labels)}

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import dense_init, dense_init_sliced
+from ..dist.sharding import hint, local_call
 
 
 def init_moe(seed, path, cfg, dtype, device, lead=()):
@@ -132,19 +133,31 @@ def moe_forward(p, x, cfg):
     m = cfg.moe
     B, S, D = x.shape
     T, E, K = B * S, m.num_experts, m.top_k
+    # in a mesh the routing sees every token, as without one: the tokens
+    # are gathered whole and routed on plain tensors (sort, one-hot and
+    # cumulative counts have no sharding rule)
     xf = x.reshape(T, D)
-    r = route(p, x, cfg)
+    r = local_call(lambda router, xs: route({"router": router}, xs, cfg),
+                   p["router"], x)
     C = r.C
-    # dispatch: a dropped slot lands in bin C, which is sliced off
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
-    buf[r.idx, torch.where(r.keep, r.pos, C)] = xf.repeat(K, 1)
-    eb = buf[:, :C]
+    # dispatch: a dropped slot lands in bin C, which is sliced off; the
+    # buffer, the expert inputs and outputs pinned to the expert axis (the
+    # identity outside a mesh). The scatter and the gather run on plain
+    # tensors (whole on every rank in a mesh: DTensor has no rule for them)
+    def dispatch(xs, idx, pos, keep):
+        buf = torch.zeros((E, C + 1, D), dtype=xs.dtype, device=xs.device)
+        buf[idx, torch.where(keep, pos, C)] = xs.repeat(K, 1)
+        return buf
+    buf = hint(local_call(dispatch, xf, r.idx, r.pos, r.keep),
+               "expert", None, None)
+    eb = hint(buf[:, :C], "expert", None, None)
     ex = p["experts"]
     h = F.silu(torch.bmm(eb, ex["w_gate"])) * torch.bmm(eb, ex["w_up"])
-    eo = torch.bmm(h, ex["w_down"])                               # [E,C,D]
+    eo = hint(torch.bmm(h, ex["w_down"]), "expert", None, None)   # [E,C,D]
     # combine: y in f32 over k in order, each slot's output gathered at its
     # clipped position times its gate (zero where dropped)
-    eo = eo[r.idx, r.pos.clamp(0, C - 1)].reshape(K, T, D)
+    eo = local_call(lambda o, idx, pos: o[idx, pos.clamp(0, C - 1)], eo,
+                    r.idx, r.pos).reshape(K, T, D)
     g = (r.gates * r.keep).float().reshape(K, T, 1)
     y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for k in range(K):

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import dense_init, rms_norm, sq_relu
+from ..dist.sharding import batch_axes, current_mesh, local_call
 
 _F32 = torch.float32
 
@@ -64,7 +65,30 @@ def chunked_linear_attn(q, k, v, log_w, *, bonus=None, inclusive=True,
     """q, k, log_w: [B,T,H,K]; v: [B,T,H,P]. Returns (y [B,T,H,P] in q's
     dtype, S [B,H,K,P] f32). ``T`` must be a multiple of the chunk
     (``min(chunk, T)``); the chunks run in a Python loop, each building its
-    own [B,L,L,H,K] decay."""
+    own [B,L,L,H,K] decay. In a mesh each rank scans its own rows and
+    heads (rows over the batch axes, heads over "model", where they
+    divide): the scan is independent per row and head."""
+    mesh = current_mesh()
+    if mesh is not None:
+        B, H = q.shape[0], q.shape[2]
+        bax = batch_axes(mesh)
+        nb = 1
+        for a in bax:
+            nb *= mesh.shape[a]
+        b = bax if bax and B % nb == 0 else None
+        h = ("model" if "model" in mesh.axis_names
+             and H % mesh.shape["model"] == 0 else None)
+        seq, st = (b, None, h, None), (b, h, None, None)
+        return local_call(
+            lambda *a: _scan(*a, inclusive=inclusive, chunk=chunk),
+            q, k, v, log_w, bonus, initial_state,
+            in_specs=[seq, seq, seq, seq, (h, None), st],
+            out_specs=[seq, st])
+    return _scan(q, k, v, log_w, bonus, initial_state, inclusive=inclusive,
+                 chunk=chunk)
+
+
+def _scan(q, k, v, log_w, bonus, initial_state, *, inclusive, chunk):
     B, T, H, K = q.shape
     P = v.shape[-1]
     L = min(chunk, T)

@@ -52,6 +52,7 @@ from . import moe as moem
 from . import ssm as ssmm
 from .common import dt, embed_init, dense_init, rms_norm, softcap
 from ..configs.base import ModelConfig
+from ..dist.sharding import hint, take_rows
 
 # a layer kind ending with this also fires the hybrid's shared block
 SHARED_SUFFIX = "_shared"
@@ -422,8 +423,10 @@ def _apply_stack(params, cfg, x, ctx, cache=None, pos=None):
 
 
 # the matrix products a "dots" period keeps for the backward pass (the
-# reference's ``dots_with_no_batch_dims_saveable``); the rest is recomputed
-_DOTS = ("mm", "bmm", "addmm")
+# reference's ``dots_with_no_batch_dims_saveable``: products with no batch
+# dims, i.e. activations against weights); batched products (attention
+# scores, the experts' stacked GEMMs: bmm) and the rest are recomputed
+_DOTS = ("mm", "addmm")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -460,7 +463,8 @@ def _remat(cfg, body):
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(params, cfg, tokens, positions=None):
-    x = params["embed"][tokens.long()].to(dt(cfg.activation_dtype))
+    x = take_rows(params["embed"], tokens.long()).to(
+        dt(cfg.activation_dtype))
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if not cfg.use_rope:
@@ -470,7 +474,7 @@ def _embed_tokens(params, cfg, tokens, positions=None):
         # a position past the table (an engine's sentinel row) reads NaN,
         # as the reference's ``jnp.take`` fills it; it never indexes out
         inside = (pos >= 0) & (pos < table.shape[0])
-        pe = table[pos.clamp(0, table.shape[0] - 1)].to(x.dtype)
+        pe = take_rows(table, pos.clamp(0, table.shape[0] - 1)).to(x.dtype)
         x = x + torch.where(inside[..., None], pe, float("nan"))
     return x
 
@@ -479,6 +483,7 @@ def _logits(params, cfg, x):
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    logits = hint(logits, "data", None, "model")
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap)
     return logits
@@ -513,6 +518,7 @@ def forward(params, cfg: ModelConfig, batch, last_only: bool = False):
     check_supported(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
+    x = hint(x, "data", None, None)
     ctx = {"positions": torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :],
            **_context(params, cfg, batch)}
@@ -524,6 +530,26 @@ def forward(params, cfg: ModelConfig, batch, last_only: bool = False):
     return _logits(params, cfg, x), aux
 
 
+def _vocab_sharded(logits) -> bool:
+    """Whether ``logits`` is a DTensor whose vocab (last) dim is split
+    over a mesh dim."""
+    return any(p.is_shard(logits.dim() - 1)
+               for p in getattr(logits, "placements", ()))
+
+
+def _sharded_nll_terms(lf, labels):
+    """logsumexp and the gold logit over vocab-sharded logits, each as a
+    reduction over the shards: the row max (an all-reduce of max), the sum
+    of exponentials and the masked gold logit (all-reduces of sums), where
+    the one-op forms would gather the logits whole. (DTensor places the
+    label mask as the labels: whole over the vocabulary on each rank.)"""
+    top = lf.amax(dim=-1, keepdim=True).detach()
+    lse = top[..., 0] + torch.log(torch.exp(lf - top).sum(dim=-1))
+    vocab = torch.arange(lf.shape[-1], device=labels.device)
+    gold = (lf * (labels[..., None] == vocab)).sum(dim=-1)
+    return lse, gold
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
     """Next-token NLL in f32 (through logsumexp), plus the MoE aux losses
     over ``num_layers``. Returns (loss, metrics) with ``nll``, ``loss``
@@ -531,8 +557,11 @@ def loss_fn(params, cfg: ModelConfig, batch):
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels[..., None])[..., 0]
+    if _vocab_sharded(lf):
+        lse, gold = _sharded_nll_terms(lf, labels)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels[..., None])[..., 0]
     nll = torch.mean(lse - gold)
     loss = nll
     metrics = {"nll": nll}
@@ -617,6 +646,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, ctx_extra=None,
     ``enc_out``. Returns (logits [B,1,V], cache)."""
     check_supported(cfg)
     B = token.shape[0]
+    # a Python int reaches the layers as it is (a meta tensor has no value)
+    given = pos
     pos = torch.as_tensor(pos, device=token.device)
     positions = pos.reshape(-1).expand(B)[:, None]
     x = _embed_tokens(params, cfg, token, positions=positions)
@@ -627,7 +658,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, ctx_extra=None,
         ctx.update(ctx_extra)
     if cfg.family == "hybrid":
         ctx["x0"] = x
-    x, _, cache = _apply_stack(params, cfg, x, ctx, cache=cache, pos=pos)
+    x, _, cache = _apply_stack(params, cfg, x, ctx, cache=cache,
+                               pos=given if isinstance(given, int) else pos)
     return _logits(params, cfg, x), cache
 
 

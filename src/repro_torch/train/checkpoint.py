@@ -16,8 +16,13 @@ records ``float32``, the dtype the file holds; ``restore`` casts every leaf
 to the dtype of the matching leaf of ``like_tree`` (a bf16 leaf comes back
 bit for bit). A reference checkpoint's bf16 arrays (``ml_dtypes``, read by
 numpy as 2-byte voids where that package is absent) are read as bf16 bits.
-The reference's resharded restore (``shardings=``, onto another mesh)
-waits on the port's sharding layer: ``shardings`` must be None.
+
+Sharded state: ``save`` writes a DTensor leaf whole (``full_tensor()``, a
+collective every rank of the mesh joins; rank 0 writes the files), so the
+format stays the reference's. ``restore(shardings=...)`` places each leaf
+with its spec's placements (a PSpec tree matching ``like_tree``; a None
+leaf stays a plain tensor): a checkpoint written on one mesh, or with
+none, restores onto another — the elastic-rescale path.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ def _to_numpy(x):
     updating a tensor in place while an async save writes it)."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.to("cpu", copy=True).numpy()
@@ -50,10 +57,26 @@ def _to_numpy(x):
 
 def save(ckpt_dir: str, step: int, tree: Any, meta: Optional[dict] = None,
          keep: int = 3):
-    """Atomic synchronous save."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomic synchronous save. In a process group every rank calls it
+    (DTensor leaves are gathered collectively); rank 0 writes, and the
+    others wait for the commit."""
     flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if _group():
+        if torch.distributed.get_rank() == 0:
+            _write(ckpt_dir, step, flat, meta, keep, final)
+        torch.distributed.barrier()
+        return final
+    return _write(ckpt_dir, step, flat, meta, keep, final)
+
+
+def _group() -> bool:
+    return (torch.distributed.is_available()
+            and torch.distributed.is_initialized())
+
+
+def _write(ckpt_dir, step, flat, meta, keep, final):
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -127,22 +150,28 @@ def _leaf(arr, like):
 
 
 def restore(ckpt_dir: str, step: int, like_tree: Any, shardings=None):
-    """Restore into the structure of ``like_tree`` (tensors, or arrays).
-    Returns (tree of tensors, manifest)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) reshards onto a mesh; the port has no "
-            "sharding layer yet (ROADMAP.md queue 1 item 5)")
+    """Restore into the structure of ``like_tree`` (tensors, or arrays);
+    with ``shardings`` (a PSpec tree matching it, on a possibly *different*
+    mesh) each leaf comes back as a DTensor placed by its spec. Returns
+    (tree, manifest)."""
+    from torch.distributed.tensor import distribute_tensor
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(path, "arrays.npz"))
+    flat_like = _flatten(like_tree)
+    shard_flat = ([s for _, s in leaves_with_paths(shardings)]
+                  if shardings is not None else [None] * len(flat_like))
     out = []
-    for k, like in _flatten(like_tree).items():
+    for (k, like), sh in zip(flat_like.items(), shard_flat):
         arr = data[k.replace("/", "|")]
         assert list(arr.shape) == list(np.shape(like)), (k, arr.shape,
                                                          np.shape(like))
-        out.append(_leaf(arr, like))
+        t = _leaf(arr, like)
+        if sh is not None:
+            t = distribute_tensor(t, sh.mesh.device_mesh, sh.placements,
+                                  src_data_rank=None)
+        out.append(t)
     return unflatten(like_tree, out), manifest
 
 

@@ -56,13 +56,15 @@ def host_shard(cfg: DataConfig, step: int, host_id: int = 0,
 
 
 def device_batch(cfg: DataConfig, step: int, extra_fields=None,
-                 device="cuda"):
+                 device="cuda", mesh=None, batch_sharding=None):
     """The global batch (single-host path) on ``device``: ``host_shard``'s
     tokens and labels, then each of ``extra_fields`` ((name, shape, dtype)
     as ``models.io.batch_fields`` gives them) drawn in order from one
     generator seeded by ``(seed * 7919 + step) % 2**31``: int32 fields
     uniform over the vocabulary, the others standard normal (drawn in
-    f32, then cast)."""
+    f32, then cast). With ``mesh`` and ``batch_sharding`` ({field:
+    PSpec}), each field is a DTensor placed by its spec: every rank builds
+    the same global batch and keeps its own rows."""
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in host_shard(cfg, step).items()}
     if extra_fields:
@@ -76,4 +78,7 @@ def device_batch(cfg: DataConfig, step: int, extra_fields=None,
             else:
                 batch[name] = torch.randn(shape, generator=g, device=device,
                                           dtype=torch.float32).to(dtype)
+    if mesh is not None and batch_sharding is not None:
+        from ..dist.sharding import distribute
+        batch = distribute(batch, {k: batch_sharding[k] for k in batch})
     return batch

@@ -2,8 +2,11 @@
 (``repro.train.optimizer`` in PyTorch), elementwise as the reference writes
 it, with no ``torch.optim`` (whose update order and clipping differ).
 
-The reference's ZeRO-1 specs (``zero1_pspecs``: the optimizer state
-sharded over the data axis) wait on the port's sharding layer.
+``zero1_pspecs`` is the reference's ZeRO-1 rule, verbatim: the optimizer
+state sharded over the data axis as well. On DTensors (a sharded trainer)
+the update is the same elementwise code on each rank's shard; the global
+norm's sum of squares is a ``Partial`` sum that becomes the full norm, on
+every rank, before the clip.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from .tree import leaves, unflatten
+from ..dist.sharding import PSpec, param_pspecs
 
 
 @dataclass(frozen=True)
@@ -37,13 +41,18 @@ class OptState(NamedTuple):
 
 def init_opt_state(params) -> OptState:
     """f32 first and second moments shaped as the params, an int32 step
-    count, on the params' device."""
-    z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    count, on the params' device (placed as the params where they are
+    DTensors; a sharded trainer re-places them by ``zero1_pspecs``)."""
+    z = lambda p: torch.zeros_like(p, dtype=torch.float32)
     flat = leaves(params)
-    dev = flat[0].device if flat else "cpu"
+    dev = _local(flat[0]).device if flat else "cpu"
     return OptState(unflatten(params, [z(p) for p in flat]),
                     unflatten(params, [z(p) for p in flat]),
                     torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
 
 
 def lr_at(cfg: AdamWConfig, step):
@@ -59,9 +68,14 @@ def lr_at(cfg: AdamWConfig, step):
 
 
 def global_norm(tree):
+    """The f32 2-norm of all leaves. A DTensor leaf's sum of squares is
+    summed over its shards (an all-reduce), so the norm is a plain tensor
+    holding the whole tree's norm on every rank."""
     total = None
     for x in leaves(tree):
         sq = torch.sum(torch.square(x.float()))
+        if hasattr(sq, "full_tensor"):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -81,13 +95,22 @@ def adamw_update(cfg: AdamWConfig, grads, state: OptState, params, *,
     b2c = 1.0 - cfg.b2 ** count.float()
 
     def upd(p, g, m, v):
+        pw = p
+        if hasattr(m, "placements"):
+            # DTensors: the gradient reduced and the param cut to the
+            # moments' (ZeRO-1) shards, the update made there, the new
+            # param gathered back to its own placements
+            g = g.redistribute(m.device_mesh, m.placements)
+            pw = p.redistribute(m.device_mesh, m.placements)
         g = g.float() * scale
         m_new = cfg.b1 * m + (1 - cfg.b1) * g
         v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
         step = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
         if p.dim() >= 2:
-            step = step + cfg.weight_decay * p.float()
-        newp = (p.float() - lr * step).to(p.dtype)
+            step = step + cfg.weight_decay * pw.float()
+        newp = (pw.float() - lr * step).to(p.dtype)
+        if pw is not p:
+            newp = newp.redistribute(p.device_mesh, p.placements)
         if not donate:
             return newp, m_new, v_new
         p.copy_(newp)
@@ -103,3 +126,30 @@ def adamw_update(cfg: AdamWConfig, grads, state: OptState, params, *,
     new_v = unflatten(params, [o[2] for o in out])
     return new_p, OptState(new_m, new_v, count), {"grad_norm": gnorm,
                                                   "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding
+# ---------------------------------------------------------------------------
+
+def zero1_pspecs(params, mesh, enabled: bool = True):
+    """Opt-state m/v shardings: the param's spec, plus the data axis on the
+    largest still-replicated dim (ZeRO-1). Falls back to the param spec when
+    nothing divides."""
+    base = param_pspecs(params, mesh)
+    if not enabled or "data" not in mesh.axis_names:
+        return OptState(base, base, PSpec(mesh, ()))
+    dsize = mesh.shape["data"]
+
+    def widen(leaf, sh):
+        spec = list(sh.spec) + [None] * (len(leaf.shape) - len(sh.spec))
+        order = sorted(range(len(leaf.shape)), key=lambda i: -leaf.shape[i])
+        for i in order:
+            if spec[i] is None and leaf.shape[i] % dsize == 0 and leaf.shape[i] >= dsize:
+                spec[i] = "data"
+                break
+        return PSpec(mesh, spec)
+
+    mv = unflatten(params, [widen(p, sh) for p, sh in
+                            zip(leaves(params), leaves(base))])
+    return OptState(mv, mv, PSpec(mesh, ()))

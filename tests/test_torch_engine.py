@@ -230,6 +230,8 @@ def test_port_never_imports_jax_or_reference():
     code = ("import sys; import repro_torch, repro_torch.serving.engine, "
             "repro_torch.serving.disagg, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.train, "
+            "repro_torch.launch.dryrun, repro_torch.launch.specs, "
+            "repro_torch.launch.hlo_metrics, repro_torch.dist, "
             "repro_torch.core.coloring, "
             "repro_torch.kernels.ops, repro_torch.bridge; "
             "bad = [m for m in sys.modules if m == 'jax' "

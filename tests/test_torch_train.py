@@ -3,10 +3,8 @@ loss_fn``, ``cfg.remat``) against the reference.
 
 Twins of the reference's ``tests/test_train.py`` (AdamW on a quadratic,
 data determinism, atomic checkpoints and bitwise resume, retention,
-failure recovery, int8 error bound, error feedback; its resharded restore
-onto a mesh waits on the port's sharding layer, so its twin takes the
-unsharded case and records that ``shardings=`` raises), then the parity
-tests. Model weights are the port's seeded ones, handed to the reference
+failure recovery, int8 error bound, error feedback, the resharded
+restore on a 1x1 mesh), then the parity tests, then the sharded cases. Model weights are the port's seeded ones, handed to the reference
 through ``repro_torch.bridge``; batches are ``host_shard``'s, which both
 packages compute with the same numpy code.
 
@@ -21,6 +19,11 @@ orders):
   derivatives amplify the rounding).
 - ``TRAIN_TOL`` 1e-5 absolute on each of 5 trainer steps' losses: worst
   1.4e-6 (the gap grows step by step as the params drift apart).
+- ``SHARDED_TOL`` 5e-6 absolute on each of 3 sharded steps' losses, the
+  port's (data=2, model=2) trainer on 4 gloo ranks against the
+  reference's on 4 fake XLA devices, against the port's unsharded
+  trainer, and a sharded resume against the unsharded run: worst 9.5e-7,
+  9.5e-7 and 4.8e-7 over six seeds (one or two f32 ulps of the loss).
 """
 import os
 import tempfile
@@ -53,6 +56,7 @@ LOSS_TOL = dict(rtol=1e-6, atol=1e-6)
 GRAD_REL = {"qwen3-1.7b": 1e-5, "deepseek-v2-236b": 2e-4,
             "moonshot-v1-16b-a3b": 2e-3}
 TRAIN_TOL = 1e-5
+SHARDED_TOL = 5e-6
 GRAD_NAMES = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "deepseek-v2-236b")
 
 
@@ -157,18 +161,29 @@ def test_trainer_failure_recovery_identical_loss():
 
 
 def test_checkpoint_restore_unsharded_and_shardings_waits():
-    """The reference's resharding test on a 1-device mesh is the
-    unsharded restore; a restore onto a mesh (``shardings=``) raises."""
+    """The reference's resharding test on a 1-device mesh: the unsharded
+    restore, and a restore onto a 1x1 mesh (``shardings=``, an in-process
+    gloo group of one) whose DTensors hold the saved values; a
+    ``Trainer(mesh=...)`` on that mesh trains."""
+    from repro_torch.dist.sharding import PSpec
+    from repro_torch.launch.mesh import local_group, make_mesh
     with tempfile.TemporaryDirectory() as d:
         tree = {"w": torch.arange(8, dtype=torch.float32)}
         ckpt.save(d, 1, tree)
         got, _ = ckpt.restore(d, 1, {"w": torch.zeros(8)})
         assert torch.equal(got["w"], tree["w"])
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            ckpt.restore(d, 1, {"w": torch.zeros(8)}, shardings={"w": 0})
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        Trainer(smoke_config("qwen3-1.7b"), DataConfig(512, 8, 2),
-                AdamWConfig(), TrainerConfig(), mesh=object(), device="cpu")
+        with local_group("gloo"):
+            mesh = make_mesh((1, 1), ("data", "model"))
+            sh, _ = ckpt.restore(d, 1, {"w": torch.zeros(8)},
+                                 shardings={"w": PSpec(mesh, ("model",))})
+            assert tuple(sh["w"].placements)[1].is_shard(0)
+            assert torch.equal(sh["w"].full_tensor(), tree["w"])
+            cfg = smoke_config("qwen3-1.7b")
+            tr = Trainer(cfg, DataConfig(cfg.vocab_size, 8, 2),
+                         AdamWConfig(), TrainerConfig(steps=2), mesh=mesh,
+                         device="cpu")
+            losses = [h["loss"] for h in tr.run()]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 @given(seed=st.integers(0, 100))
@@ -460,3 +475,105 @@ def test_trainer_steps_match_reference():
     assert len(got) == 5
     np.testing.assert_allclose(got, want, rtol=0, atol=TRAIN_TOL)
     assert got[-1] < got[0]
+
+
+# ---------------------------------------------------------------------------
+# sharded: 4 gloo ranks against the reference on 4 fake XLA devices
+# ---------------------------------------------------------------------------
+
+SHARDED_CASE = dict(arch="qwen3-1.7b", seed=1, seq=16, batch=4,
+                    opt=dict(lr=1e-3, warmup_steps=2, total_steps=10),
+                    resume_to=4)
+
+
+def _unsharded(case, steps, ckpt_dir=None, every=10 ** 6):
+    cfg = smoke_config(case["arch"])
+    tr = Trainer(cfg, DataConfig(cfg.vocab_size, case["seq"], case["batch"],
+                                 seed=case["seed"]),
+                 AdamWConfig(**case["opt"]),
+                 TrainerConfig(steps=steps, ckpt_dir=ckpt_dir,
+                               ckpt_every=every),
+                 seed=case["seed"], device="cpu")
+    return tr, [h["loss"] for h in tr.run()]
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Both sides' subprocesses at once (``tests/_torch_dist_cases.py``),
+    from the port's seeded weights and an unsharded checkpoint of its
+    trainer at step 2."""
+    import pickle
+    import subprocess
+    import sys
+    d = tmp_path_factory.mktemp("sharded")
+    case = dict(SHARDED_CASE, ckpt_dir=str(d / "ckpt"))
+    tr, _ = _unsharded(case, 2, ckpt_dir=case["ckpt_dir"], every=2)
+    case["params"] = bridge.to_numpy(
+        tf.init_params(smoke_config(case["arch"]), case["seed"], "cpu"))
+    with open(d / "case.pkl", "wb") as f:
+        pickle.dump(case, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.path.join(here, "..", "src"))
+    procs = {side: subprocess.Popen(
+        [sys.executable, os.path.join(here, "_torch_dist_cases.py"), side,
+         str(d / "case.pkl"), str(d / f"{side}.pkl")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for side in ("ref", "port")}
+    out = {}
+    for side, p in procs.items():
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+        with open(d / f"{side}.pkl", "rb") as f:
+            out[side] = pickle.load(f)
+    out["case"] = case
+    return out
+
+
+def test_sharded_trainer_matches_reference(sharded):
+    """3 steps of the qwen3 smoke config on (data=2, model=2): every rank's
+    losses are rank 0's, and within ``SHARDED_TOL`` of the reference's
+    sharded trainer from the same weights and batches."""
+    ranks = sharded["port"]
+    want = sharded["ref"]["losses"]
+    assert all(r["losses"] == ranks[0]["losses"] for r in ranks)
+    np.testing.assert_allclose(ranks[0]["losses"], want, rtol=0,
+                               atol=SHARDED_TOL)
+    assert sharded["ref"]["spec_embed"] == "PartitionSpec('model', None)"
+    pl = ranks[0]["placements"]
+    assert pl["embed"] == "(Replicate(), Shard(dim=0))"
+    assert pl["m_embed"] == "(Shard(dim=1), Shard(dim=0))"      # ZeRO-1
+
+
+def test_sharded_trainer_matches_unsharded(sharded):
+    _, want = _unsharded(sharded["case"], 3)
+    np.testing.assert_allclose(sharded["port"][0]["losses"], want, rtol=0,
+                               atol=SHARDED_TOL)
+
+
+def test_resharded_restore(sharded):
+    """An unsharded checkpoint restored onto the (2, 2) mesh: every leaf a
+    DTensor whose ``full_tensor()`` equals the plain restore bit for bit;
+    a sharded trainer resumed from it at step 2 continues the unsharded
+    run."""
+    r = sharded["port"][0]
+    assert r["restore_equal"]
+    assert r["restore_dtensors"] == r["restore_leaves"] - 1   # opt count
+    assert r["resumed_at"] == 2
+    _, want = _unsharded(sharded["case"], sharded["case"]["resume_to"])
+    np.testing.assert_allclose(r["resumed"], want[2:], rtol=0,
+                               atol=SHARDED_TOL)
+
+
+def test_compressed_cross_pod_mean(sharded):
+    """Over pod=2 each rank gets the f32 mean of its pod group's
+    dequantized int8 leaves (ranks r and r ^ 2 on the (pod, data) mesh),
+    bit for bit."""
+    ranks = sharded["port"]
+    for r in range(4):
+        pair = sorted({r, r ^ 2})
+        for i, got in enumerate(ranks[r]["pod_mean"]):
+            want = torch.mean(torch.stack([
+                torch.from_numpy(ranks[j]["pod_deq"][i]) for j in pair]),
+                dim=0)
+            assert torch.equal(torch.from_numpy(got), want), (r, i)
