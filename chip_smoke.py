@@ -4066,10 +4066,10 @@ def _deterministic(torch):
 SHARD_STEPS = 3
 # the 1x1 mesh's losses against no mesh's. Step 0 (the forward before any
 # update) runs the same ops on the same values: bit-equal. After an update
-# they differ by what one rounding step in a few gradient leaves makes of
-# the loss: DTensor's dispatch hands einsum's products other operand
-# layouts, so some bf16 products round the other way, and AdamW carries
-# that into the params (steps 1-2: 9.4e-6 and 1.1e-5 relative, PERF.md)
+# they may differ by what one rounding step in a few gradient leaves makes
+# of the loss where DTensor's dispatch hands a product other operand
+# layouts (steps 1-2: 9.4e-6 and 1.1e-5 relative while the blocks ran on
+# DTensors; bit-equal since they run on local tensors, PERF.md)
 SHARD_LOSS_TOL = 1e-6
 SHARD_STEP_TOL = 1e-4
 # the dry run's cells at full width, each in a subprocess of its own (a
@@ -4077,6 +4077,12 @@ SHARD_STEP_TOL = 1e-4
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
                 ("deepseek-v2-236b", "decode_32k", "multi"))
 DRYRUN_TIMEOUT = 900
+# the pinned traces (this tree's, on the build host's torch) and the
+# reference's compiled values beside them; a trace here must have the
+# same collective counts by kind, its FLOPs and temp within PIN_TOL
+PINS = ROOT / "tests" / "torch_dryrun_pins.json"
+PIN_TOL = 0.02
+H100_BYTES = 80e9
 
 
 def _dryrun_procs(out):
@@ -4088,15 +4094,106 @@ def _dryrun_procs(out):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     procs = []
-    for arch, shape, mesh in DRYRUN_CELLS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
-               "--force"]
-        procs.append((cmd, out / f"{arch}__{shape}__{mesh}.json",
+    cmds = [([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+              arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
+              "--force"], out / f"{arch}__{shape}__{mesh}.json")
+            for arch, shape, mesh in DRYRUN_CELLS]
+    cmds.append(([sys.executable, "-m", "repro_torch.launch.dryrun",
+                  "--smoke", str(out / "smoke.json")], out / "smoke.json"))
+    for cmd, path in cmds:
+        procs.append((cmd, path,
                       subprocess.Popen(cmd, env=env, cwd=ROOT,
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)))
     return procs
+
+
+def _against_pins(traced):
+    """Hold each traced cell ({"<mesh>/<arch>/<shape>": summary}) to the
+    pins: collective counts by kind equal, FLOPs and temp within PIN_TOL;
+    then each full-width cell's fits-in-80-GB verdict to the reference's
+    once its CPU copies of bf16 inputs are out (the reference's as
+    compiled printed beside it)."""
+    pins = json.loads(PINS.read_text())
+    log(f"  (c) against {PINS.name} (torch {pins['torch']}, "
+        f"{pins['command']}):")
+    for cell, got in traced.items():
+        want = pins["cells"][cell]
+        rel = {k: got[k] / want[k] - 1 for k in ("flops", "temp_bytes")}
+        log(f"      {cell}: collectives {got['collectives']} (pinned "
+            f"{want['collectives']}), FLOPs {got['flops']:.6e} "
+            f"({rel['flops']:+.2e}), temp {got['temp_bytes']} "
+            f"({rel['temp_bytes']:+.2e})")
+        require(got["collectives"] == want["collectives"],
+                f"{cell}: collectives {got['collectives']} against the "
+                f"pinned {want['collectives']}")
+        require(all(abs(x) <= PIN_TOL for x in rel.values()),
+                f"{cell}: FLOPs or temp off the pins by {rel}")
+        require(got["argument_bytes"] == want["argument_bytes"],
+                f"{cell}: argument bytes off the pins")
+    ref = pins["reference"]
+    for cell, want in ref["cells"].items():
+        got = traced[cell]
+        port = got["argument_bytes"] + got["temp_bytes"]
+        as_compiled = want["argument_bytes"] + want["temp_bytes"]
+        less = want["argument_bytes"] + want["live_peak_less_cpu_copies"]
+        fits = lambda b: "fits" if b < H100_BYTES else "does not fit"
+        log(f"      {cell} in 80 GB (argument + temp): port "
+            f"{port / 1e9:.3f} GB {fits(port)}; reference compiled (jax "
+            f"{ref['jax']}, CPU) {as_compiled / 1e9:.3f} GB "
+            f"{fits(as_compiled)}; its live peak without its "
+            f"{want['cpu_copies_bytes'] / 1e9:.3f} GB of f32 copies of bf16 "
+            f"inputs {less / 1e9:.3f} GB {fits(less)}; port temp over the "
+            f"reference's {got['temp_bytes'] / want['temp_bytes']:.3f}")
+        require(fits(port) == fits(less),
+                f"{cell}: the port {fits(port)} in 80 GB, the reference "
+                f"{fits(less)}")
+
+
+def _dryrun_results(procs, t0):
+    """Wait for the dry run's subprocesses (``_dryrun_procs``, started at
+    ``t0``), print each record and hold them to the pins."""
+    t1 = time.perf_counter()
+    traced = {}
+    for cmd, path, p in procs:
+        try:
+            _, err = p.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for _, _, q in procs:
+                q.kill()
+            require(False, f"dry run over {DRYRUN_TIMEOUT}s: {cmd}")
+        require(p.returncode == 0 and path.exists(),
+                f"dry run failed: {cmd}: {err[-2000:]}")
+        rec = json.loads(path.read_text())
+        if "cells" in rec:                               # the smoke cells
+            traced.update({k: {x: v[x] for x in ("flops", "argument_bytes",
+                                                 "temp_bytes", "collectives")}
+                           for k, v in rec["cells"].items()})
+            log(f"  (c) the six smoke cells traced (torch {rec['torch']})")
+            continue
+        require(rec["ok"], f"dry run cell not ok: {rec.get('error')}\n"
+                           f"{rec.get('traceback', '')[-2500:]}")
+        m = rec["main"]
+        traced[f"{rec['mesh']}/{rec['arch']}/{rec['shape']}"] = {
+            "flops": m["flops"],
+            "argument_bytes": m["memory"]["argument_bytes"],
+            "temp_bytes": m["memory"]["temp_bytes"],
+            "collectives": dict(sorted(m["collectives"]["counts"].items()))}
+        mem, coll = m["memory"], m["collectives"]
+        log(f"  (c) {rec['arch']} {rec['shape']} on {rec['n_devices']} "
+            f"ranks ({rec['mesh']}), traced in {rec['elapsed_s']}s: per "
+            f"device argument {mem['argument_bytes'] / 2 ** 30:.3f} GiB, "
+            f"temp {mem['temp_bytes'] / 2 ** 30:.3f} GiB (of the H100's "
+            f"80 GB: {(mem['argument_bytes'] + mem['temp_bytes']) / 80e9:.3f}"
+            f"), output {mem['output_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{m['flops']:.4e} FLOPs, bytes accessed "
+            f"{m['bytes_accessed']:.4e}; collectives {coll['counts']}, "
+            f"wire bytes {coll['wire_bytes']}; temp at its peak by op (GiB) "
+            f"{ {k: round(v / 2 ** 30, 3) for k, v in mem.get('temp_by_op', {}).items()} }"
+            f"; torch {rec['torch']}")
+    log(f"  (c) waited {time.perf_counter() - t1:.1f}s for the dry run")
+    _against_pins(traced)
 
 
 def _train_losses(torch, cfg, dc, seed, mesh, ckpt_dir=None):
@@ -4122,8 +4219,10 @@ def sharding_phase(torch, seed, smi):
     within SHARD_STEP_TOL (see there); (b) the unsharded trainer's params, checkpointed,
     restored onto the mesh (``restore(shardings=...)``): every leaf's
     ``full_tensor()`` bit-equal; (c) the dry run at full width, each of
-    DRYRUN_CELLS in its own subprocess on the host, started first and
-    read last: each records ``ok``."""
+    DRYRUN_CELLS in its own subprocess on the host, and the six smoke
+    cells in a third, started first and read last: each records ``ok``,
+    each cell's trace matches the pins (``_against_pins``), and each
+    full-width cell gives the reference's fits-in-80-GB verdict."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import param_pspecs
@@ -4185,33 +4284,7 @@ def sharding_phase(torch, seed, smi):
         require(all(equal), "a resharded leaf differs from the checkpoint")
         del got, want
         _free(torch)
-    t1 = time.perf_counter()
-    for cmd, path, p in procs:
-        try:
-            _, err = p.communicate(timeout=max(
-                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            for _, _, q in procs:
-                q.kill()
-            require(False, f"dry run over {DRYRUN_TIMEOUT}s: {cmd}")
-        require(p.returncode == 0 and path.exists(),
-                f"dry run failed: {cmd}: {err[-2000:]}")
-        rec = json.loads(path.read_text())
-        require(rec["ok"], f"dry run cell not ok: {rec.get('error')}\n"
-                           f"{rec.get('traceback', '')[-2500:]}")
-        m = rec["main"]
-        mem, coll = m["memory"], m["collectives"]
-        log(f"  (c) {rec['arch']} {rec['shape']} on {rec['n_devices']} "
-            f"ranks ({rec['mesh']}), traced in {rec['elapsed_s']}s: per "
-            f"device argument {mem['argument_bytes'] / 2 ** 30:.3f} GiB, "
-            f"temp {mem['temp_bytes'] / 2 ** 30:.3f} GiB (of the H100's "
-            f"80 GB: {(mem['argument_bytes'] + mem['temp_bytes']) / 80e9:.3f}"
-            f"), output {mem['output_bytes'] / 2 ** 30:.3f} GiB, "
-            f"{m['flops']:.4e} FLOPs, bytes accessed "
-            f"{m['bytes_accessed']:.4e}; collectives {coll['counts']}, "
-            f"wire bytes {coll['wire_bytes']}; temp at its peak by op (GiB) "
-            f"{ {k: round(v / 2 ** 30, 3) for k, v in mem.get('temp_by_op', {}).items()} }")
-    log(f"  (c) waited {time.perf_counter() - t1:.1f}s for the dry run")
+    _dryrun_results(procs, t0)
     log(f"  phase 16 wall {time.perf_counter() - t0:.1f}s")
 
 

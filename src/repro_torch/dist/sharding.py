@@ -36,6 +36,16 @@ production mesh sizes without a mesh):
 ``partition_dims``, ``batch_axes``, ``set_attn_fallback``,
 ``current_mesh``/``use_mesh`` and ``_path_str`` are the reference's,
 verbatim.
+
+Where the reference leaves a placement to XLA's propagation, the port
+states it: a model block runs under :func:`local_call` with the specs
+XLA's compiled program gives it (``spec_of`` reads a DTensor's own), and
+its collectives are the ones the specs imply (:class:`Reduced` outputs,
+:func:`whole_product`, :func:`mesh_reduce`); every redistribution, both
+ways, goes one mesh dim at a time (:func:`move`, :func:`place`). Neither
+DTensor's sharding propagation nor its redistribution planner then
+chooses a placement or a collective, so a traced step is the same on
+every torch version.
 """
 from __future__ import annotations
 
@@ -138,7 +148,7 @@ def hint(x, *axes):
         x = DTensor.from_local(x, mesh.device_mesh,
                                [Replicate()] * len(placements),
                                run_check=False)
-    return x.redistribute(mesh.device_mesh, placements)
+    return place(x, placements)
 
 
 def _on_mesh(mesh, spec) -> tuple:
@@ -153,6 +163,219 @@ def _on_mesh(mesh, spec) -> tuple:
     return tuple(out)
 
 
+class Reduced:
+    """An out spec of :func:`local_call`: each rank's result is one part
+    of the whole over the mesh axes ``over``, combined by ``op`` ("sum" or
+    "max") as it comes back (an all-reduce an axis); ``spec`` places the
+    other dims."""
+
+    def __init__(self, spec=(), over=("model",), op="sum"):
+        self.spec, self.over, self.op = tuple(spec), tuple(over), op
+
+
+def axes_of(s) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    return () if s is None else (s,) if isinstance(s, str) else tuple(s)
+
+
+def spec_of(t) -> tuple:
+    """The spec of a DTensor's placements: per tensor dim, the mesh axis
+    it is split over (a tuple where several), None where whole; all None
+    for a plain tensor. Partial placements are not specs (none here)."""
+    spec = [None] * t.dim()
+    for name, p in zip(getattr(getattr(t, "device_mesh", None),
+                               "mesh_dim_names", None) or (),
+                       getattr(t, "placements", ())):
+        if p.is_shard():
+            d = p.dim % t.dim()
+            spec[d] = name if spec[d] is None else axes_of(spec[d]) + (name,)
+    return tuple(spec)
+
+
+def reshard(x, spec):
+    """``x`` redistributed to ``spec`` (per dim: a mesh axis, a tuple of
+    them or None) on the current mesh; names it lacks replicate. The
+    identity outside a mesh."""
+    mesh = _CURRENT_MESH
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    pl = PSpec(mesh, _on_mesh(mesh, spec)).placements
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh.device_mesh,
+                               [Replicate()] * len(pl), run_check=False)
+    return place(x, pl)
+
+
+def move(x, placements):
+    """The DTensor ``x`` redistributed to ``placements`` one mesh dim at a
+    time, in an order fixed here (each step one collective or none), so
+    that no torch version's redistribution planner chooses it: partial
+    sums first (reduce-scattered where the target splits that dim and no
+    other mesh dim splits its tensor dim, else all-reduced), then every
+    mesh dim splitting a tensor dim whose split changes gathered, the
+    innermost first, then the target's splits cut, the outermost first
+    (a local slice). Not differentiable by itself: :func:`place` is."""
+    from torch.distributed.tensor import Replicate
+    dm = x.device_mesh
+    target = tuple(placements)
+    cur = list(x.placements)
+
+    def step(i, p):
+        nonlocal x
+        cur[i] = p
+        x = x.redistribute(dm, tuple(cur))
+
+    def splits(pl, d):
+        return {i for i, p in enumerate(pl) if p.is_shard(d)}
+
+    for i, p in enumerate(cur):
+        if p.is_partial() and not target[i].is_partial():
+            t = target[i]
+            alone = t.is_shard() and splits(cur, t.dim) == set() and \
+                splits(target, t.dim) == {i}
+            step(i, t if alone else Replicate())
+    moved = {p.dim for p, t in zip(cur, target) if p.is_shard() and p != t}
+    moved |= {t.dim for p, t in zip(cur, target)
+              if t.is_shard() and splits(cur, t.dim) != splits(target, t.dim)}
+    for i in reversed(range(len(cur))):
+        if cur[i].is_shard() and cur[i].dim in moved:
+            step(i, Replicate())
+    for i, t in enumerate(target):
+        if cur[i] != t:
+            step(i, t)
+    return x
+
+
+_PLACE = None
+
+
+def place(x, placements):
+    """``x`` (a DTensor) moved to ``placements`` by :func:`move`, and its
+    gradient moved back by :func:`move` to ``x``'s own placements (its
+    partial sums reduced where they arrive), so neither direction is left
+    to DTensor's planner."""
+    global _PLACE
+    if _PLACE is None:
+        import torch
+
+        class Place(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, t, pl, back):
+                ctx.back = back
+                return move(t, pl)
+
+            @staticmethod
+            def backward(ctx, g):
+                return move(g, ctx.back), None, None
+        _PLACE = Place
+    if tuple(x.placements) == tuple(placements) and not x.requires_grad:
+        return x
+    return _PLACE.apply(x, tuple(placements), tuple(x.placements))
+
+
+_REDUCED = None
+
+
+def reduced_out(t, dm, placements):
+    """The DTensor whose rank shards are ``t`` placed by ``placements``
+    (some Partial), its partial sums reduced by :func:`move`. Its gradient
+    comes back to ``t`` as the whole gradient's local part: each rank's
+    part of a sum has the sum's gradient (whatever a torch version's
+    ``from_local`` makes of a Partial's gradient)."""
+    global _REDUCED
+    if _REDUCED is None:
+        import torch
+        from torch.distributed.tensor import DTensor, Replicate
+
+        class ReducedOut(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, local, dm, pl):
+                d = DTensor.from_local(local, dm, pl, run_check=False)
+                ctx.whole = [Replicate() if p.is_partial() else p
+                             for p in pl]
+                return move(d, ctx.whole)
+
+            @staticmethod
+            def backward(ctx, g):
+                return move(g, ctx.whole).to_local(), None, None
+        _REDUCED = ReducedOut
+    return _REDUCED.apply(t, dm, tuple(placements))
+
+
+_LOCAL_MESH = None      # the mesh a local_call function runs on
+
+
+def _group(mesh, axis):
+    return (mesh.device_mesh, mesh.axis_names.index(axis))
+
+
+def mesh_reduce(t, axes, op="sum"):
+    """Inside a :func:`local_call` function: ``t`` combined by ``op``
+    ("sum", "max") over the ranks of the mesh ``axes`` (an all-reduce an
+    axis); the identity outside one, or over axes of size 1. Not
+    differentiable: for steps that take no gradient."""
+    mesh = _LOCAL_MESH
+    if mesh is None:
+        return t
+    import torch.distributed._functional_collectives as funcol
+    for ax in axes_of(axes):
+        if mesh.shape.get(ax, 1) > 1:
+            t = funcol.all_reduce(t, op, _group(mesh, ax))
+    return t
+
+
+def mesh_gather(t, dim, axes):
+    """Inside a :func:`local_call` function: the ranks' ``t`` over the
+    mesh ``axes`` concatenated along ``dim`` (an all-gather an axis, the
+    last axis first); the identity outside one. Not differentiable."""
+    mesh = _LOCAL_MESH
+    if mesh is None:
+        return t
+    import torch.distributed._functional_collectives as funcol
+    for ax in reversed(axes_of(axes)):
+        if mesh.shape.get(ax, 1) > 1:
+            t = funcol.all_gather_tensor(t.contiguous(), dim,
+                                         _group(mesh, ax))
+    return t
+
+
+def whole_product(eq, x, w, wspec):
+    """Inside a :func:`local_call` function: ``torch.einsum(eq, x, W)``
+    made whole, for the rank's shard ``w`` of a weight ``W`` placed by
+    ``wspec`` and an ``x`` whole over the mesh axes of ``wspec``. ``x`` is
+    cut to the rank's range of each split dim it shares with ``W``; where
+    that dim is summed, the partial products are summed (an all-reduce),
+    where it is a result dim, the shards are gathered along it (an
+    all-gather). The plain einsum outside a mesh. Not differentiable: for
+    steps that take no gradient (decode)."""
+    import torch
+    mesh = _LOCAL_MESH
+    if mesh is None:
+        return torch.einsum(eq, x, w)
+    ins, out = eq.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    summed, gathered = [], []
+    for i, s in enumerate(wspec):
+        axes = [a for a in axes_of(s) if mesh.shape.get(a, 1) > 1]
+        if not axes:
+            continue
+        c, n, coord = lw[i], w.shape[i], 0
+        for a in axes:
+            coord = coord * mesh.shape[a] + \
+                mesh.device_mesh.get_local_rank(a)
+        if c in lx:
+            x = x.narrow(lx.index(c), coord * n, n)
+        if c in out:
+            gathered.append((out.index(c), axes))
+        else:
+            summed += axes
+    y = mesh_reduce(torch.einsum(eq, x, w), tuple(summed))
+    for d, axes in gathered:
+        y = mesh_gather(y, d, tuple(axes))
+    return y
+
+
 def local_call(fn, *args, in_specs=None, out_specs=None):
     """``fn`` on plain tensors, each rank on its own shards: the port's
     ``shard_map``, for a region whose ops DTensor has no sharding rule
@@ -164,18 +387,24 @@ def local_call(fn, *args, in_specs=None, out_specs=None):
     returns (in tuples, named tuples, lists and dicts, in that order) comes
     back as a DTensor placed by the next spec of ``out_specs`` (default:
     replicated). The caller states specs under which ``fn`` on the shards
-    is ``fn`` on the whole. Outside a mesh it is ``fn(*args)``.
-    Differentiable both ways."""
+    is ``fn`` on the whole. An out spec may be :class:`Reduced`: ``fn``
+    returns each rank's part and the whole comes back. ``fn`` runs with
+    no current mesh (a ``hint`` or ``local_call`` inside it is the
+    identity), and its own collectives (:func:`mesh_reduce`,
+    :func:`mesh_gather`, :func:`whole_product`) go over the mesh. Outside
+    a mesh it is ``fn(*args)``. Differentiable both ways: each argument's
+    gradient goes back to the argument's own placements, its partial sums
+    reduced where they arrive (:func:`place`)."""
+    global _LOCAL_MESH
     mesh = _CURRENT_MESH
     if mesh is None:
         return fn(*args)
     import torch
     from torch.distributed.tensor import DTensor, Partial, Replicate
     dm = mesh.device_mesh
-    place = lambda spec: PSpec(mesh, _on_mesh(mesh, spec)).placements
     in_specs = list(in_specs or [()] * len(args))
     tensors = [isinstance(a, torch.Tensor) for a in args]
-    pls = [place(spec) for spec in in_specs]
+    pls = [PSpec(mesh, _on_mesh(mesh, spec)).placements for spec in in_specs]
     # mesh dims the work is split over: an argument whole on such a dim
     # gets, on each rank, the gradient of that rank's share alone (a
     # partial sum), as shard_map's transpose of a replicated input
@@ -190,23 +419,45 @@ def local_call(fn, *args, in_specs=None, out_specs=None):
             grad = [p if p.is_shard() else
                     Partial() if i in split else Replicate()
                     for i, p in enumerate(pl)]
-            a = a.redistribute(dm, pl).to_local(grad_placements=grad)
+            a = place(a, pl).to_local(grad_placements=grad)
         local.append(a)
     specs = iter(out_specs or ())
+    prev = _LOCAL_MESH
+    _LOCAL_MESH = mesh
+    try:
+        with use_mesh(None):
+            res = fn(*local)
+    finally:
+        _LOCAL_MESH = prev
+    return _wrap_out(res, specs, mesh)
 
-    def wrap(t):
-        if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
-            return DTensor.from_local(t, dm, place(next(specs, ())),
-                                      run_check=False)
-        if isinstance(t, dict):
-            return {k: wrap(v) for k, v in t.items()}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(wrap(v) for v in t))
-        if isinstance(t, (tuple, list)):
-            return type(t)(wrap(v) for v in t)
-        return t
 
-    return wrap(fn(*local))
+def _wrap_out(t, specs, mesh):
+    """:func:`local_call`'s result ``t``, each plain tensor (in tuples,
+    named tuples, lists and dicts) a DTensor placed by the next of
+    ``specs``. (A module-level recursion: a nested one would be a
+    reference cycle, freed only by the garbage collector.)"""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial
+    dm = mesh.device_mesh
+    if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
+        spec = next(specs, ())
+        if not isinstance(spec, Reduced):
+            return DTensor.from_local(
+                t, dm, PSpec(mesh, _on_mesh(mesh, spec)).placements,
+                run_check=False)
+        pl = [Partial(spec.op) if ax in spec.over else p
+              for ax, p in zip(mesh.axis_names,
+                               PSpec(mesh, _on_mesh(mesh, spec.spec))
+                               .placements)]
+        return reduced_out(t, dm, pl)
+    if isinstance(t, dict):
+        return {k: _wrap_out(v, specs, mesh) for k, v in t.items()}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_wrap_out(v, specs, mesh) for v in t))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_wrap_out(v, specs, mesh) for v in t)
+    return t
 
 
 def take_rows(table, ids):
@@ -232,8 +483,8 @@ def take_rows(table, ids):
     grad = [tp if tp.is_shard() else
             Partial() if ip.is_shard() else Replicate()
             for tp, ip in zip(t_pl, ids_pl)]
-    tl = table.to_local(grad_placements=grad)
-    il = ids.redistribute(dm, ids_pl).to_local()
+    tl = place(table, t_pl).to_local(grad_placements=grad)
+    il = move(ids, ids_pl).to_local()
     if any(tp.is_shard(0) for tp in t_pl):
         shape, offset = compute_local_shape_and_global_offset(
             table.shape, dm, t_pl)
@@ -246,9 +497,7 @@ def take_rows(table, ids):
     out = [Partial() if tp.is_shard(0) else
            Shard(rows.dim() - 1) if tp.is_shard() else ip
            for tp, ip in zip(t_pl, ids_pl)]
-    whole = [Replicate() if p.is_partial() else p for p in out]
-    return DTensor.from_local(rows, dm, out, run_check=False).redistribute(
-        dm, whole)
+    return reduced_out(rows, dm, out)
 
 
 def _path_str(path) -> str:

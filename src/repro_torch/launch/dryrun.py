@@ -17,10 +17,19 @@ A record's ``scaled`` field is therefore the traced totals themselves, and
 no ``ssm_correction`` is applied; ``--no-probes`` is accepted and changes
 nothing.
 
+Every placement inside a model block is stated
+(``repro_torch.dist.sharding``), so the trace is a function of the tree,
+not of the installed torch's sharding rules: ``tests/torch_dryrun_pins.json``
+pins the six smoke cells (``SMOKE_CELLS``) and two full-width cells
+(``PIN_CELLS``), and ``chip_smoke.py`` phase 16c holds the GPU machine's
+torch to it. A record names the torch that traced it.
+
 Usage:
     python -m repro_torch.launch.dryrun                  # all cells, both meshes
     python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k
     python -m repro_torch.launch.dryrun --mesh multi --force
+    python -m repro_torch.launch.dryrun --smoke FILE     # the smoke cells
+    python -m repro_torch.launch.dryrun --pins FILE      # write the pins
 Artifacts: artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json  (resumable)
 """
 import argparse
@@ -35,6 +44,17 @@ from ..train.optimizer import AdamWConfig
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "artifacts", "dryrun_torch")
+
+# the smoke cells: three architectures at smoke widths on two 8-rank
+# meshes ("<mesh>/<arch>/<kind>": mesh dims and axes, arch, shape)
+SMOKE_MESHES = {"single": ((2, 4), ("data", "model")),
+                "multi": ((2, 2, 2), ("pod", "data", "model"))}
+SMOKE_CELLS = (("qwen3-1.7b", ShapeConfig("t", 64, 8, "train")),
+               ("deepseek-v2-236b", ShapeConfig("d", 64, 8, "decode")),
+               ("zamba2-1.2b", ShapeConfig("p", 64, 8, "prefill")))
+# the full-width cells pinned beside them (arch, shape, mesh)
+PIN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
+             ("deepseek-v2-236b", "decode_32k", "multi"))
 
 
 def cell_mode(shape: ShapeConfig) -> str:
@@ -104,6 +124,62 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str):
     return metrics
 
 
+def summary(m: dict) -> dict:
+    """What the pins hold of a traced cell: FLOPs, argument and temp
+    bytes, collective counts by kind."""
+    return {"flops": m["flops"],
+            "argument_bytes": m["memory"]["argument_bytes"],
+            "temp_bytes": m["memory"]["temp_bytes"],
+            "collectives": dict(sorted(m["collectives"]["counts"].items()))}
+
+
+def trace_smoke() -> dict:
+    """Trace the SMOKE_CELLS, each on a fake process group of 8 ranks;
+    returns ``traced_metrics``'s dict a cell, by "<mesh>/<arch>/<kind>"."""
+    from ..configs import smoke_config
+    from .mesh import fake_group, make_mesh
+    out = {}
+    for mesh_name, (dims, axes) in SMOKE_MESHES.items():
+        with fake_group(8):
+            mesh = make_mesh(dims, axes)
+            for arch, shape in SMOKE_CELLS:
+                cfg = tune_config(smoke_config(arch), shape.kind)
+                out[f"{mesh_name}/{arch}/{shape.kind}"] = trace_cell(
+                    cfg, shape, mesh, shape.kind)
+    return out
+
+
+def write_pins(path: str, argv) -> dict:
+    """Trace the SMOKE_CELLS and the PIN_CELLS and write their summaries
+    to ``path`` (JSON) with the command and the torch that wrote them,
+    keeping the file's "reference" entry (the reference's compiled
+    values, written by ``tests/_dryrun_reference.py``)."""
+    import sys
+    import tempfile
+    import torch
+    old = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
+    cells = {k: summary(m) for k, m in trace_smoke().items()}
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape, mesh in PIN_CELLS:
+            rec = run_cell(arch, shape, mesh, out_dir=d, force=True)
+            if not rec["ok"]:
+                raise RuntimeError(f"{arch} {shape} {mesh}: {rec['error']}")
+            cells[f"{mesh}/{arch}/{shape}"] = summary(rec["main"])
+    pins = {"command": " ".join(["python -m repro_torch.launch.dryrun"]
+                                + list(argv)),
+            "torch": torch.__version__, "python": sys.version.split()[0],
+            "cells": cells}
+    if "reference" in old:
+        pins["reference"] = old["reference"]
+    with open(path, "w") as f:
+        json.dump(pins, f, indent=1)
+        f.write("\n")
+    return pins
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              probes: bool = True, out_dir: str = ART_DIR,
              force: bool = False, overrides: dict | None = None,
@@ -118,8 +194,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     base = get_config(arch)
     mode = cell_mode(shape)
     n_dev = 512 if mesh_kind == "multi" else 256
+    import torch
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
-           "mode": mode, "n_devices": n_dev, "ok": False, "tag": tag}
+           "mode": mode, "n_devices": n_dev, "ok": False, "tag": tag,
+           "torch": torch.__version__}
     t0 = time.time()
     try:
         with fake_group(n_dev):
@@ -160,7 +238,22 @@ def main(argv=None):
                     choices=["headdim", "replicate"])
     ap.add_argument("--set", action="append", default=[],
                     help="cfg override k=v (e.g. remat=dots)")
+    ap.add_argument("--smoke", default=None, metavar="FILE",
+                    help="trace the smoke cells into FILE (JSON) and stop")
+    ap.add_argument("--pins", default=None, metavar="FILE",
+                    help="trace the smoke and pinned cells, write FILE")
     args = ap.parse_args(argv)
+    if args.pins:
+        import sys
+        return write_pins(args.pins, sys.argv[1:] if argv is None else argv)
+    if args.smoke:
+        import torch
+        out = {k: dict(summary(m), shapes=m["collectives"]["shapes"])
+               for k, m in trace_smoke().items()}
+        with open(args.smoke, "w") as f:
+            json.dump({"torch": torch.__version__, "cells": out}, f,
+                      indent=1)
+        return out
 
     from ..dist.sharding import set_attn_fallback
     set_attn_fallback(args.attn_fallback)

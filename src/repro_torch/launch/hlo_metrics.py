@@ -124,6 +124,11 @@ _FUNCOL = {"all_reduce": "all-reduce",
            "all_to_all_single": "all-to-all"}
 
 
+# ops whose result is their input under a wrapper (an AsyncCollectiveTensor
+# on a real run; the meta kernels allocate a new storage)
+_WRAPS = ("_wrap_tensor_autograd", "wait_tensor")
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -192,34 +197,64 @@ class _Recorder:
         self.flops = 0.0
         self.bytes = 0.0
         self.coll = CollectiveStats()
+        self.coll_shapes = defaultdict(int)     # "kind dtype[shape] of n"
         self.live = 0
         self.peak = 0
         self.peak_by_op = {}
-        self._seen = {}                  # storage -> (bytes, op)
+        self._seen = {}         # live entry -> [bytes, op, storages held]
+        self._addr = {}         # live storage address -> its entry
+        self._entries = 0       # entries made
 
     def _track(self, t, op):
         st = t.untyped_storage()
         key = st._cdata
-        if key in self._seen:
+        if key in self._addr:
             return
         n = st.nbytes()
-        self._seen[key] = (n, op)
+        eid = self._entries
+        self._entries += 1
+        self._seen[eid] = [n, op, 0]
         self.live += n
         if self.live > self.peak:
             if self.live > 1.02 * self.peak:     # the peak's makeup, by op
                 by = defaultdict(int)
-                for b, o in self._seen.values():
+                for b, o, _ in self._seen.values():
                     by[o] += b
                 self.peak_by_op = dict(sorted(by.items(),
                                               key=lambda kv: -kv[1])[:8])
             self.peak = self.live
+        self._hold(st, key, eid)
 
-        def free(key=key, n=n, rec=weakref.ref(self)):
+    def _hold(self, st, key, eid):
+        """Count entry ``eid`` live while storage ``st`` (at address
+        ``key``: its own, or an alias's) is: a meta storage's Python
+        object lives as long as the storage, and ``weakref.finalize``
+        fires when it goes. An address is released with its storage, so
+        a later storage there is a new one."""
+        self._addr[key] = eid
+        self._seen[eid][2] += 1
+
+        def release(key=key, eid=eid, rec=weakref.ref(self)):
             r = rec()
-            if r is not None:
-                r._seen.pop(key, None)
-                r.live -= n
-        weakref.finalize(st, free)
+            if r is None:
+                return
+            if r._addr.get(key) == eid:
+                del r._addr[key]
+            e = r._seen.get(eid)
+            if e is not None:
+                e[2] -= 1
+                if e[2] == 0:
+                    r.live -= r._seen.pop(eid)[0]
+        weakref.finalize(st, release)
+
+    def _alias(self, out, src):
+        """``out`` is ``src`` under another storage (a collective's
+        autograd wrapper, whose meta kernel allocates where the real one
+        wraps): one logical tensor, counted once, live while either is."""
+        eid = self._addr.get(src.untyped_storage()._cdata)
+        st = out.untyped_storage()
+        if eid is not None and st._cdata not in self._addr:
+            self._hold(st, st._cdata, eid)
 
     def dispatch(self, func, types, args, kwargs):
         import torch
@@ -247,7 +282,9 @@ class _Recorder:
         aliases = schema is not None and (
             func.is_view or any(a.alias_info is not None
                                 for a in schema.returns))
-        if not aliases:
+        if name in _WRAPS and ins and isinstance(out, torch.Tensor):
+            self._alias(out, ins[0])
+        elif not aliases:
             for t in outs:
                 if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
                     self._track(t, name)
@@ -264,6 +301,8 @@ class _Recorder:
         self.coll.counts[kind] += 1
         self.coll.result_bytes[kind] += s
         self.coll.wire_bytes[kind] += _wire(kind, s, n)
+        dt = str(out.dtype).replace("torch.", "")
+        self.coll_shapes[f"{kind} {dt}{list(out.shape)} of {n}"] += 1
 
 
 def traced_metrics(step, *args) -> dict:
@@ -288,14 +327,23 @@ def traced_metrics(step, *args) -> dict:
       ``output_bytes`` those of the result; ``alias_bytes`` those of the
       results that are arguments updated in place (the counterpart of
       donated buffers); ``temp_bytes`` the peak of live local storages the
-      step's ops allocate (views and in-place results are not new storage),
-      while it runs, and ``temp_by_op`` the 8 ops whose results held most
-      of it at (about) that peak; ``code_bytes`` is 0: nothing is compiled,
-      the kernels are the ops' own;
+      step's ops allocate (views, in-place results and a collective's
+      autograd wrapper are not new storage; a storage counts from the op
+      that makes it until its last tensor dies), while it runs, and
+      ``temp_by_op`` the 8 ops whose results held most of it at (about)
+      that peak; ``code_bytes`` is 0: nothing is compiled, the kernels are
+      the ops' own. It is what an eager step holds, not what XLA's
+      ``temp_size_in_bytes`` holds: XLA counts buffers an eager step never
+      makes (on its CPU backend, f32 copies of bf16 dot operands, hoisted
+      out of the layer loop over the whole stacked leaf; the scan's stacked
+      residuals of every query block at once) and fuses away results the
+      eager step makes one op at a time (a cast, a mask, a ``where``);
+      ``PERF.md`` names them cell by cell;
     - ``collectives``: each functional collective a rank issues
       (all_reduce, all_gather_into_tensor, reduce_scatter_tensor,
       all_to_all_single), by its local result bytes and its group's size,
-      under the wire-byte model of the module docstring.
+      under the wire-byte model of the module docstring, and ``shapes``:
+      how many of each kind, result dtype and shape, and group size.
     Returns (metrics, the step's result)."""
     rec = _Recorder()
     arg_ids = {id(_local(t)) for t in _tensors(args)}
@@ -314,6 +362,7 @@ def traced_metrics(step, *args) -> dict:
             "code_bytes": 0,
             "temp_by_op": rec.peak_by_op,
         },
-        "collectives": rec.coll.to_dict(),
+        "collectives": dict(rec.coll.to_dict(),
+                            shapes=dict(sorted(rec.coll_shapes.items()))),
     }
     return metrics, out

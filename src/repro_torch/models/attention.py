@@ -12,6 +12,14 @@ has no softcap and no local window, the attention core is the CUDA
 flash-decode / chunked-prefill kernel (via :mod:`repro_torch.kernels.ops`;
 the plain version on CPU tensors), otherwise a torch-op core.
 
+In a mesh, attention runs where the reference's compiled program places
+it: the reference has no sharding hint in attention and XLA's
+propagation keeps every head on every "model" rank (its projections
+gather ``wq``/``wk``/``wv`` in training, its decode reduces partial
+q/k/v, its ``wo`` products come out split on d_model and are gathered).
+The port states those placements (:func:`_whole_heads`,
+:func:`_decode_sharded`), so DTensor's propagation never chooses them.
+
 Caches are updated in place (the counterpart of the reference's donated
 buffers): the functions still return the caches, which are the tensors they
 were given. A write the reference drops (``.at[...].set(mode="drop")`` or an
@@ -29,6 +37,8 @@ import torch
 
 from .common import (apply_rope, causal_mask, dense_init, local_mask,
                      rms_norm, softcap)
+from ..dist.sharding import (axes_of, current_mesh, local_call, mesh_gather,
+                             mesh_reduce, reshard, spec_of, whole_product)
 from ..kernels import ops as kops
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16
@@ -146,6 +156,42 @@ def blocked_attention(q, k, v, *, causal=True, window=None, cap=None,
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+# id(local weight shard) -> its spec, while a sharded decode step runs
+# (:func:`_decode_sharded`): its weight products are made whole there
+_WSPECS = {}
+
+
+def _ein(eq, a, w):
+    """``torch.einsum(eq, a, w)`` for a weight ``w``; in a sharded decode
+    step, on ``w``'s shard made whole (``whole_product``)."""
+    spec = _WSPECS.get(id(w))
+    if spec is None:
+        return torch.einsum(eq, a, w)
+    return whole_product(eq, a, w, spec)
+
+
+def _whole_heads(fn, p, x, cfg, **kw):
+    """``fn(p, x, cfg, **kw)`` (a full-sequence attention block) on each
+    rank's local tensors, every head on every rank: ``x`` as it is placed
+    (rows over the batch axes), each weight but ``wo`` gathered whole,
+    ``wo`` split on d_model as it is placed; the output, split on d_model
+    as that product leaves it, gathered to ``x``'s placement (XLA's
+    placement of the reference's attention)."""
+    names = list(p)
+    xs = spec_of(x)
+    ds = spec_of(p["wo"])[-1]
+    specs = [(None,) * (p[n].dim() - 1) + (ds,) if n == "wo" else ()
+             for n in names]
+    keys = list(kw)
+    out = local_call(
+        lambda x, *a: fn(dict(zip(names, a[len(keys):])), x, cfg,
+                         **dict(kw, **dict(zip(keys, a[:len(keys)])))),
+        x, *kw.values(), *(p[n] for n in names),
+        in_specs=[xs] + [()] * len(keys) + specs,
+        out_specs=[xs[:-1] + (ds,)])
+    return reshard(out, xs)
+
+
 def _masked_softmax(scores, mask):
     scores = torch.where(mask, scores,
                          torch.tensor(NEG_INF, device=scores.device))
@@ -179,9 +225,9 @@ def grouped_attention(q, k, v, mask, cap=None):
 
 
 def _proj_qkv(p, x, cfg, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _ein("bsd,dhk->bshk", x, p["wq"])
+    k = _ein("bsd,dhk->bshk", x, p["wk"])
+    v = _ein("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_gamma"], cfg.norm_eps)
         k = rms_norm(k, p["k_gamma"], cfg.norm_eps)
@@ -197,6 +243,9 @@ def gqa_forward(p, x, cfg, *, layer_kind="global", positions=None,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
+    if current_mesh() is not None:
+        return _whole_heads(gqa_forward, p, x, cfg, layer_kind=layer_kind,
+                            positions=positions, causal=causal)
     q, k, v = _proj_qkv(p, x, cfg, positions)
     window = cfg.local_window if (layer_kind == "local" and causal) else None
     if S > BLOCKED_THRESHOLD:
@@ -219,14 +268,28 @@ def _flash_ok(cfg, layer_kind) -> bool:
         not (layer_kind == "local" and cfg.local_window)
 
 
+def _split_softmax(scores, mask, axes):
+    """The softmax of scores whose keys are split over the mesh ``axes``
+    (each rank holds a range of them): the row max and the sum of
+    exponentials reduced over the ranks (two all-reduces), then each
+    rank's weights; ``_masked_softmax`` where ``axes`` is empty."""
+    if not axes:
+        return _masked_softmax(scores, mask)
+    s = torch.where(mask, scores, torch.tensor(NEG_INF, device=scores.device))
+    e = torch.exp(s - mesh_reduce(s.amax(dim=-1, keepdim=True), axes, "max"))
+    return e / mesh_reduce(e.sum(dim=-1, keepdim=True), axes)
+
+
 def _decode_core(q, cache_k, cache_v, positions, cfg, layer_kind, x_dtype,
-                 *, use_flash=False):
+                 *, use_flash=False, k0=0, seq_axes=()):
     """Shared cached-context attention core over a dense KV window.
     q: [B,Sq,H,Dh] (Sq == 1 for decode, a token chunk for chunked prefill);
     cache_{k,v}: [B,Hkv,S,Dh] (KV-major); positions: [B,Sq] — each query row
     attends to cached positions <= its own. ``use_flash`` (on a layer with
     no softcap/local window) takes the decode kernel for one-token rows and
-    the chunked-prefill kernel otherwise."""
+    the chunked-prefill kernel otherwise. In a sharded decode step the
+    cache is this rank's keys from position ``k0`` on, split over the mesh
+    ``seq_axes``: the softmax and P.V are reduced over them."""
     B, Sq, H, Dh = q.shape
     Hkv, S = cache_k.shape[1], cache_k.shape[2]
     G = H // Hkv
@@ -240,7 +303,7 @@ def _decode_core(q, cache_k, cache_v, positions, cfg, layer_kind, x_dtype,
         out = kops.prefill_attention(q, cache_k, cache_v,
                                      positions[:, 0].to(torch.int32))
         return out.to(x_dtype)
-    kv_pos = torch.arange(S, device=q.device)[None, None, :]
+    kv_pos = k0 + torch.arange(S, device=q.device)[None, None, :]
     valid = kv_pos <= positions[:, :, None]          # [B, Sq, S]
     if window:
         valid &= kv_pos > positions[:, :, None] - window
@@ -249,9 +312,10 @@ def _decode_core(q, cache_k, cache_v, positions, cfg, layer_kind, x_dtype,
                           cache_k.float()) * (Dh ** -0.5)
     if cfg.attn_logit_softcap:
         scores = softcap(scores, cfg.attn_logit_softcap)
-    w = _masked_softmax(scores, valid[:, None, None])
-    out = torch.einsum("bhgqk,bhkd->bqhgd", w.to(cache_v.dtype).float(),
-                       cache_v.float())
+    w = _split_softmax(scores, valid[:, None, None], seq_axes)
+    out = mesh_reduce(torch.einsum("bhgqk,bhkd->bqhgd",
+                                   w.to(cache_v.dtype).float(),
+                                   cache_v.float()), seq_axes)
     return out.reshape(B, Sq, H, Dh).to(x_dtype)
 
 
@@ -287,21 +351,93 @@ def gqa_decode(p, x, cfg, cache_k, cache_v, pos, *, layer_kind="global",
     vector ``pos`` writes each row at its own position and drops rows
     out of range (the reference's mask write). Both leave the same cache.
     Returns (out [B,1,D], cache_k, cache_v)."""
+    if current_mesh() is not None:
+        return _decode_sharded(_gqa_decode_local, p, x, cfg, cache_k,
+                               cache_v, pos, layer_kind=layer_kind)
+    out = _gqa_decode_local(p, x, cfg, cache_k, cache_v, pos,
+                            layer_kind=layer_kind, use_flash=use_flash)
+    return out, cache_k, cache_v
+
+
+def _gqa_decode_local(p, x, cfg, cache_k, cache_v, pos, *, layer_kind,
+                      use_flash=False, h0=0, k0=0, head_axes=(),
+                      seq_axes=()):
+    """:func:`gqa_decode`'s step on one rank's cache: heads [h0, h0 +
+    Hkv_local) split over ``head_axes``, keys from ``k0`` on split over
+    ``seq_axes`` (the whole cache at 0 outside a mesh). Returns out."""
     B = x.shape[0]
-    Smax = cache_k.shape[2]
+    Hl, Smax = cache_k.shape[1], cache_k.shape[2]
     pos_t = torch.as_tensor(pos, device=x.device)
     positions = pos_t.reshape(-1).expand(B)[:, None]
     q, k, v = _proj_qkv(p, x, cfg, positions)        # k,v: [B,1,Hkv,Dh]
+    if head_axes:
+        G = q.shape[2] // k.shape[2]
+        q = q[:, :, h0 * G:(h0 + Hl) * G]
+        k, v = k[:, :, h0:h0 + Hl], v[:, :, h0:h0 + Hl]
     if pos_t.dim() == 0:
-        p0 = pos if isinstance(pos, int) else int(pos_t)
+        p0 = (pos if isinstance(pos, int) else int(pos_t)) - k0
         if 0 <= p0 < Smax:
             cache_k[:, :, p0] = k[:, 0].to(cache_k.dtype)
             cache_v[:, :, p0] = v[:, 0].to(cache_v.dtype)
     else:
-        _chunk_scatter(cache_k, cache_v, k, v, positions[:, 0])
+        _chunk_scatter(cache_k, cache_v, k, v, positions[:, 0] - k0)
     out = _decode_core(q, cache_k, cache_v, positions, cfg, layer_kind,
-                       x.dtype, use_flash=use_flash)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+                       x.dtype, use_flash=use_flash, k0=k0,
+                       seq_axes=seq_axes)
+    out = mesh_gather(out, 2, head_axes)
+    return _ein("bshk,hkd->bsd", out, p["wo"])
+
+
+def _decode_sharded(fn, p, x, cfg, cache_a, cache_b, pos, **kw):
+    """A one-token decode step ``fn`` on each rank's local tensors where
+    XLA places the reference's: every weight at its own placement, its
+    products made whole (partial sums all-reduced, split outputs
+    gathered: ``whole_product``), the norm scales gathered whole, the
+    cache never moved: written in place where the position is this
+    rank's, keys split over the mesh reduce the softmax, heads split are
+    gathered after it, latent features split (an MLA cache) sum the
+    scores and gather the latent output. ``x`` takes the cache's row
+    placement for the step (the reference's rule places an unstacked,
+    prefix, layer's cache one dim off, its rows whole: every rank then
+    steps every row) and the output goes back to ``x``'s. No gradient is
+    taken through it. Returns (out, cache_a, cache_b)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    names = list(p)
+    # products' weights as they are placed; norm scales gathered whole
+    wspecs = [spec_of(p[n]) if p[n].dim() > 1 else () for n in names]
+    xs, sa, sb = spec_of(x), spec_of(cache_a), spec_of(cache_b)
+    offs = [compute_local_shape_and_global_offset(
+        c.shape, c.device_mesh, c.placements)[1] for c in (cache_a, cache_b)]
+    seq = cache_a.dim() - 2                  # the sequence axis, -2 in all
+    if seq == 2:                             # GQA [B, Hkv, S, Dh]
+        if sa[3] is not None or sa != sb:
+            raise NotImplementedError(f"a GQA cache placed {sa}, {sb}")
+        loc = dict(h0=offs[0][1], k0=offs[0][2],
+                   head_axes=axes_of(sa[1]), seq_axes=axes_of(sa[2]))
+    else:                                    # MLA [B, S, R], [B, S, rope]
+        if sa[:2] != sb[:2]:
+            raise NotImplementedError(f"MLA caches placed {sa}, {sb}")
+        loc = dict(k0=offs[0][1], seq_axes=axes_of(sa[1]),
+                   fa=(offs[0][2], axes_of(sa[2])),
+                   fb=(offs[1][2], axes_of(sb[2])))
+    ca, cb = cache_a.to_local(), cache_b.to_local()
+    rows = (sa[0],) + xs[1:]
+    pos_arg = pos if isinstance(pos, torch.Tensor) else None
+
+    def run(x, pos_t, *ws):
+        for w, spec in zip(ws, wspecs):
+            _WSPECS[id(w)] = spec
+        try:
+            return fn(dict(zip(names, ws)), x, cfg, ca, cb,
+                      pos if pos_t is None else pos_t, **kw, **loc)
+        finally:
+            _WSPECS.clear()
+
+    pos_spec = rows[:1] if pos_arg is not None and pos_arg.dim() else ()
+    out = local_call(run, x, pos_arg, *(p[n] for n in names),
+                     in_specs=[rows, pos_spec] + wspecs, out_specs=[rows])
+    return reshard(out, xs), cache_a, cache_b
 
 
 def gqa_prefill_step(p, x, cfg, cache_k, cache_v, pos, *,
@@ -418,9 +554,9 @@ def gqa_prefill_paged(p, x, cfg, k_pages, v_pages, page_table, pos, *,
 
 def _mla_q(p, x, cfg, positions):
     m = cfg.mla
-    ql = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_ln"],
+    ql = rms_norm(_ein("bsd,dr->bsr", x, p["wq_a"]), p["q_ln"],
                   cfg.norm_eps)
-    q = torch.einsum("bsr,rhk->bshk", ql, p["wq_b"])
+    q = _ein("bsr,rhk->bshk", ql, p["wq_b"])
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
@@ -429,7 +565,7 @@ def _mla_q(p, x, cfg, positions):
 
 def _mla_latent(p, x, cfg, positions):
     m = cfg.mla
-    kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    kv = _ein("bsd,dr->bsr", x, p["wkv_a"])
     c_kv = rms_norm(kv[..., :m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
     k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
                         cfg.rope_theta)
@@ -444,6 +580,9 @@ def mla_forward(p, x, cfg, *, positions=None, causal=True, **_):
     H = cfg.num_heads
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
+    if current_mesh() is not None:
+        return _whole_heads(mla_forward, p, x, cfg, positions=positions,
+                            causal=causal)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
@@ -464,26 +603,38 @@ def mla_forward(p, x, cfg, *, positions=None, causal=True, **_):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
-def _mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope, positions):
+def _mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope, positions,
+              k0=0, seq_axes=(), fa=(0, ()), fb=(0, ())):
     """Absorbed-matmul attention over a dense latent window. cache_ckv:
     [B,S,R]; cache_krope: [B,S,rope]; positions: [B,Sq] — each query row
     attends to latents at positions <= its own. Scores and the latent
-    output are f32 products of the (upcast) operands."""
+    output are f32 products of the (upcast) operands. In a sharded decode
+    step the window is this rank's latents from position ``k0`` on, split
+    over the mesh ``seq_axes``, and its features from ``fa[0]``/``fb[0]``
+    on, split over ``fa[1]``/``fb[1]``: the scores' partial sums are
+    reduced over those, the latent output gathered."""
     m = cfg.mla
     Smax = cache_ckv.shape[1]
-    q_eff = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])
+    q_eff = _ein("bqhk,rhk->bqhr", q_nope, p["wk_b"])
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    scores = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(),
-                           cache_ckv.float())
-              + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
-                             cache_krope.float())) * scale
-    valid = (torch.arange(Smax, device=x.device)[None, None, :]
+    s_lat = torch.einsum("bqhr,bsr->bhqs", _feat(q_eff, fa, cache_ckv).float(),
+                         cache_ckv.float())
+    s_rope = torch.einsum("bqhk,bsk->bhqs",
+                          _feat(q_rope, fb, cache_krope).float(),
+                          cache_krope.float())
+    if fa[1] == fb[1]:
+        scores = mesh_reduce(s_lat + s_rope, fa[1]) * scale
+    else:
+        scores = (mesh_reduce(s_lat, fa[1])
+                  + mesh_reduce(s_rope, fb[1])) * scale
+    valid = (k0 + torch.arange(Smax, device=x.device)[None, None, :]
              <= positions[:, :, None])[:, None]          # [B,1,Sq,S]
-    w = _masked_softmax(scores, valid)
-    o_latent = torch.einsum("bhqs,bsr->bqhr",
-                            w.to(cache_ckv.dtype).float(), cache_ckv.float())
-    out = torch.einsum("bqhr,rhn->bqhn", o_latent.to(x.dtype), p["wv_b"])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    w = _split_softmax(scores, valid, seq_axes)
+    o_latent = mesh_gather(mesh_reduce(torch.einsum(
+        "bhqs,bsr->bqhr", w.to(cache_ckv.dtype).float(), cache_ckv.float()),
+        seq_axes), 3, fa[1])
+    out = _ein("bqhr,rhn->bqhn", o_latent.to(x.dtype), p["wv_b"])
+    return _ein("bshk,hkd->bsd", out, p["wo"])
 
 
 def mla_decode(p, x, cfg, cache_ckv, cache_krope, pos, **_):
@@ -493,22 +644,43 @@ def mla_decode(p, x, cfg, cache_ckv, cache_krope, pos, **_):
     guarded ``dynamic_update_slice``), a vector ``pos`` each row at its own
     position, dropping rows out of range: both leave the same cache.
     Returns (out [B,1,D], cache_ckv, cache_krope)."""
+    if current_mesh() is not None:
+        return _decode_sharded(_mla_decode_local, p, x, cfg, cache_ckv,
+                               cache_krope, pos)
+    return (_mla_decode_local(p, x, cfg, cache_ckv, cache_krope, pos),
+            cache_ckv, cache_krope)
+
+
+def _mla_decode_local(p, x, cfg, cache_ckv, cache_krope, pos, *, k0=0,
+                      seq_axes=(), fa=(0, ()), fb=(0, ())):
+    """:func:`mla_decode`'s step on one rank's latents from position
+    ``k0`` on (split over ``seq_axes``), the latent and rope features from
+    ``fa[0]``, ``fb[0]`` on (split over ``fa[1]``, ``fb[1]``); the whole
+    cache outside a mesh. Returns out."""
     B = x.shape[0]
     Smax = cache_ckv.shape[1]
     pos_t = torch.as_tensor(pos, device=x.device)
     positions = pos_t.reshape(-1).expand(B)[:, None]
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    c_kv, k_rope = _feat(c_kv, fa, cache_ckv), _feat(k_rope, fb, cache_krope)
     if pos_t.dim() == 0:
-        p0 = pos if isinstance(pos, int) else int(pos_t)
+        p0 = (pos if isinstance(pos, int) else int(pos_t)) - k0
         if 0 <= p0 < Smax:
             cache_ckv[:, p0] = c_kv[:, 0].to(cache_ckv.dtype)
             cache_krope[:, p0] = k_rope[:, 0].to(cache_krope.dtype)
     else:
         _chunk_scatter(cache_ckv, cache_krope, c_kv, k_rope,
-                       positions[:, 0])
-    return (_mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope,
-                      positions), cache_ckv, cache_krope)
+                       positions[:, 0] - k0)
+    return _mla_core(p, x, cfg, q_nope, q_rope, cache_ckv, cache_krope,
+                     positions, k0=k0, seq_axes=seq_axes, fa=fa, fb=fb)
+
+
+def _feat(t, f, cache):
+    """``t``'s last dim cut to the range ``cache`` holds when its features
+    are split over the mesh (``f`` = (first, axes)); ``t`` as it is
+    otherwise."""
+    return t[..., f[0]:f[0] + cache.shape[-1]] if f[1] else t
 
 
 def mla_prefill_step(p, x, cfg, cache_ckv, cache_krope, pos, **_):

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import reshard
+
 # ---------------------------------------------------------------------------
 # dtype helpers
 # ---------------------------------------------------------------------------
@@ -90,7 +92,15 @@ def embed_init(seed: int, path: str, shape, dtype, device):
 # norms
 # ---------------------------------------------------------------------------
 
+def _whole(gamma):
+    """A norm's scale whole on every rank: a stacked layer's scale is
+    split on its width by the rules, and XLA gathers it (in a mesh; the
+    identity elsewhere)."""
+    return reshard(gamma, ()) if hasattr(gamma, "placements") else gamma
+
+
 def rms_norm(x, gamma, eps: float = 1e-6):
+    gamma = _whole(gamma)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -98,6 +108,7 @@ def rms_norm(x, gamma, eps: float = 1e-6):
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    gamma, beta = _whole(gamma), _whole(beta)
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)

@@ -37,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from .common import dense_init, dense_init_sliced
-from ..dist.sharding import hint, local_call
+from ..dist.sharding import (Reduced, axes_of, current_mesh, local_call,
+                             reshard, spec_of)
+from .mlp import mlp_forward
 
 
 def init_moe(seed, path, cfg, dtype, device, lead=()):
@@ -129,43 +131,59 @@ def route(p, x, cfg) -> Routing:
 
 def moe_forward(p, x, cfg):
     """x: [B,S,D] -> (y [B,S,D], aux) with aux ``z_loss``, ``lb_loss`` and
-    ``dropped_frac``."""
+    ``dropped_frac``.
+
+    In a mesh each step runs on local tensors where the reference's
+    compiled program places it (there is no "expert" axis on the
+    production meshes, so its ``hint(.., "expert", ..)`` pins nothing):
+    the routing sees every token, as without a mesh (the tokens are
+    gathered whole; sort, one-hot and cumulative counts are per batch),
+    the dispatch buffer and the expert outputs are whole on every rank,
+    and each expert product runs on the weights' hidden split as
+    ``w_up``'s last dim is, its partial sums reduced (the weights
+    gathered whole where that dim is whole: deepseek-v2 splits the
+    model dim, as XLA gathers them); the shared experts are
+    :func:`mlp_forward`."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, K = B * S, m.num_experts, m.top_k
-    # in a mesh the routing sees every token, as without one: the tokens
-    # are gathered whole and routed on plain tensors (sort, one-hot and
-    # cumulative counts have no sharding rule)
     xf = x.reshape(T, D)
     r = local_call(lambda router, xs: route({"router": router}, xs, cfg),
                    p["router"], x)
     C = r.C
-    # dispatch: a dropped slot lands in bin C, which is sliced off; the
-    # buffer, the expert inputs and outputs pinned to the expert axis (the
-    # identity outside a mesh). The scatter and the gather run on plain
-    # tensors (whole on every rank in a mesh: DTensor has no rule for them)
+
+    # dispatch: a dropped slot lands in bin C, which is sliced off
     def dispatch(xs, idx, pos, keep):
         buf = torch.zeros((E, C + 1, D), dtype=xs.dtype, device=xs.device)
         buf[idx, torch.where(keep, pos, C)] = xs.repeat(K, 1)
         return buf
-    buf = hint(local_call(dispatch, xf, r.idx, r.pos, r.keep),
-               "expert", None, None)
-    eb = hint(buf[:, :C], "expert", None, None)
+
+    def experts(buf, w_gate, w_up, w_down):
+        eb = buf[:, :C]
+        h = F.silu(torch.bmm(eb, w_gate)) * torch.bmm(eb, w_up)
+        return torch.bmm(h, w_down)                                # [E,C,D]
+
+    # combine: y in f32 over k in order, each slot's output gathered at
+    # its clipped position times its gate (zero where dropped)
+    def combine(eo, idx, pos, gates, keep):
+        eo = eo[idx, pos.clamp(0, C - 1)].reshape(K, T, D)
+        g = (gates * keep).float().reshape(K, T, 1)
+        y = torch.zeros((T, D), dtype=torch.float32, device=eo.device)
+        for k in range(K):
+            y = y + eo[k].float() * g[k]
+        return y
+
     ex = p["experts"]
-    h = F.silu(torch.bmm(eb, ex["w_gate"])) * torch.bmm(eb, ex["w_up"])
-    eo = hint(torch.bmm(h, ex["w_down"]), "expert", None, None)   # [E,C,D]
-    # combine: y in f32 over k in order, each slot's output gathered at its
-    # clipped position times its gate (zero where dropped)
-    eo = local_call(lambda o, idx, pos: o[idx, pos.clamp(0, C - 1)], eo,
-                    r.idx, r.pos).reshape(K, T, D)
-    g = (r.gates * r.keep).float().reshape(K, T, 1)
-    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    for k in range(K):
-        y = y + eo[k].float() * g[k]
+    hs = spec_of(ex["w_up"])[-1] if current_mesh() is not None else None
+    buf = local_call(dispatch, xf, r.idx, r.pos, r.keep)
+    eo = local_call(experts, buf, ex["w_gate"], ex["w_up"], ex["w_down"],
+                    in_specs=[(), (None, None, hs), (None, None, hs),
+                              (None, hs, None)],
+                    out_specs=[Reduced((), axes_of(hs)) if hs else ()])
+    y = reshard(local_call(combine, eo, r.idx, r.pos, r.gates, r.keep),
+                spec_of(xf))
     if "shared" in p:
-        sp = p["shared"]
-        hs = F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])
-        y = y + (hs @ sp["w_down"]).float()
+        y = y + mlp_forward(p["shared"], xf, "swiglu").float()
     return y.reshape(B, S, D).to(x.dtype), r.aux
 
 

@@ -52,7 +52,9 @@ from . import moe as moem
 from . import ssm as ssmm
 from .common import dt, embed_init, dense_init, rms_norm, softcap
 from ..configs.base import ModelConfig
-from ..dist.sharding import hint, take_rows
+from ..dist.sharding import (Reduced, axes_of, current_mesh, hint,
+                             local_call, spec_of, take_rows)
+from ..train.tree import leaves, unflatten
 
 # a layer kind ending with this also fires the hybrid's shared block
 SHARED_SUFFIX = "_shared"
@@ -310,7 +312,24 @@ def _store(cache, new):
             cache[name].copy_(t)
 
 
+def _on_local(fn, p, x, cache):
+    """``fn(p, x)`` for a layer with no sharding rule of its own (the SSM
+    layers): in a mesh, without a cache, on each rank's rows of ``x`` with
+    every weight gathered whole (no head split: the scan runs every head
+    on every rank); else ``fn(p, x, cache)``."""
+    if current_mesh() is None or cache is not None:
+        return fn(p, x, cache)
+    xs = spec_of(x)
+    w = leaves(p)
+    return local_call(lambda x, *w: fn(unflatten(p, w), x, None), x, *w,
+                      in_specs=[xs] + [()] * len(w), out_specs=[xs])
+
+
 def _rwkv_layer(p, x, cfg, cache=None):
+    return _on_local(lambda p, x, c: _rwkv(p, x, cfg, c), p, x, cache)
+
+
+def _rwkv(p, x, cfg, cache):
     rp = p["rwkv"]
     st, tm_last, cm_last = ((cache["state"], cache["tm_shift"],
                              cache["cm_shift"]) if cache is not None
@@ -326,6 +345,10 @@ def _rwkv_layer(p, x, cfg, cache=None):
 
 
 def _mamba_layer(p, x, cfg, cache=None):
+    return _on_local(lambda p, x, c: _mamba(p, x, cfg, c), p, x, cache)
+
+
+def _mamba(p, x, cfg, cache):
     st, cv = ((cache["state"], cache["conv"]) if cache is not None
               else (None, None))
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -339,7 +362,11 @@ def _shared_block(sp, x, x0, cfg, inv, ctx, cache=None, pos=None):
     the invocation's input projection, shared attn+MLP; the delta is added
     to the trunk."""
     sp = cast_tree(sp, cfg)
-    h = torch.cat([x, x0.to(x.dtype)], dim=-1) @ sp["in_proj"][inv]
+    xs = spec_of(x)
+    # in a mesh: each rank's rows, the invocation's projection gathered
+    h = local_call(lambda x, x0, w: torch.cat([x, x0.to(x.dtype)], dim=-1)
+                   @ w, x, x0, sp["in_proj"][inv], in_specs=[xs, xs, ()],
+                   out_specs=[xs])
     p = {k: sp[k] for k in ("ln1", "attn", "ln2", "mlp")}
     out, _ = _attn_layer(p, h, cfg, "global", ctx, cache, pos)
     return x + (out - h)
@@ -424,15 +451,19 @@ def _apply_stack(params, cfg, x, ctx, cache=None, pos=None):
 
 # the matrix products a "dots" period keeps for the backward pass (the
 # reference's ``dots_with_no_batch_dims_saveable``: products with no batch
-# dims, i.e. activations against weights); batched products (attention
-# scores, the experts' stacked GEMMs: bmm) and the rest are recomputed
+# dims, i.e. activations against weights: mm, addmm, and the bmm of one
+# batch that an einsum against a weight dispatches to); batched products
+# (attention scores, the experts' stacked GEMMs) and the rest are
+# recomputed
 _DOTS = ("mm", "addmm")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     from torch.utils.checkpoint import CheckpointPolicy
     saved = {getattr(torch.ops.aten, n).default for n in _DOTS}
-    return (CheckpointPolicy.MUST_SAVE if op in saved
+    keep = op in saved or (op is torch.ops.aten.bmm.default
+                           and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if keep
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -482,7 +513,12 @@ def _embed_tokens(params, cfg, tokens, positions=None):
 def _logits(params, cfg, x):
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
-    logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    # in a mesh: each rank's rows against its own vocab columns (the
+    # tied table split on the vocab as it is placed), never gathered
+    xs, vs = spec_of(x), spec_of(w)[-1]
+    logits = local_call(
+        lambda x, w: torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)), x, w,
+        in_specs=[xs, (None, vs)], out_specs=[xs[:-1] + (vs,)])
     logits = hint(logits, "data", None, "model")
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap)
@@ -538,16 +574,34 @@ def _vocab_sharded(logits) -> bool:
 
 
 def _sharded_nll_terms(lf, labels):
-    """logsumexp and the gold logit over vocab-sharded logits, each as a
-    reduction over the shards: the row max (an all-reduce of max), the sum
-    of exponentials and the masked gold logit (all-reduces of sums), where
-    the one-op forms would gather the logits whole. (DTensor places the
-    label mask as the labels: whole over the vocabulary on each rank.)"""
-    top = lf.amax(dim=-1, keepdim=True).detach()
-    lse = top[..., 0] + torch.log(torch.exp(lf - top).sum(dim=-1))
-    vocab = torch.arange(lf.shape[-1], device=labels.device)
-    gold = (lf * (labels[..., None] == vocab)).sum(dim=-1)
-    return lse, gold
+    """logsumexp and the gold logit over vocab-sharded logits ``lf``
+    [B,S,V], each rank on its own vocab columns, where the reference's
+    compiled program keeps them: the row max (an all-reduce of max,
+    outside the gradient, as any shift leaves logsumexp exact), the sum
+    of exponentials and the gold logit read where this rank holds the
+    label (all-reduces of sums). Nothing [B,S,V]-sized is gathered or
+    built whole, forward or backward."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    spec = spec_of(lf)
+    rows, vax = spec[:-1], axes_of(spec[-1])
+    v0 = compute_local_shape_and_global_offset(
+        lf.shape, lf.device_mesh, lf.placements)[1][-1]
+    top = local_call(lambda l: l.detach().amax(dim=-1), lf,
+                     in_specs=[spec], out_specs=[Reduced(rows, vax, "max")])
+
+    def parts(l, lab, top):
+        n = l.shape[-1]
+        rel = lab - v0
+        gold = l.gather(-1, rel.clamp(0, n - 1)[..., None])[..., 0]
+        gold = gold.masked_fill((rel < 0) | (rel >= n), 0.0)
+        return torch.exp(l - top[..., None]).sum(dim=-1), gold
+
+    sumexp, gold = local_call(parts, lf, labels, top,
+                              in_specs=[spec, rows, rows],
+                              out_specs=[Reduced(rows, vax),
+                                         Reduced(rows, vax)])
+    return top + torch.log(sumexp), gold
 
 
 def loss_fn(params, cfg: ModelConfig, batch):

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from .tree import leaves, unflatten
-from ..dist.sharding import PSpec, param_pspecs
+from ..dist.sharding import PSpec, move, param_pspecs, reduced_out
 
 
 @dataclass(frozen=True)
@@ -68,14 +68,27 @@ def lr_at(cfg: AdamWConfig, step):
 
 
 def global_norm(tree):
-    """The f32 2-norm of all leaves. A DTensor leaf's sum of squares is
-    summed over its shards (an all-reduce), so the norm is a plain tensor
-    holding the whole tree's norm on every rank."""
-    total = None
+    """The f32 2-norm of all leaves. DTensor leaves' sums of squares are
+    their shards', added up by the mesh dims that split them and summed
+    over those (one all-reduce a mesh dim and group, one at a time:
+    ``dist.sharding.reduced_out``), so the norm is a plain tensor holding
+    the whole tree's norm on every rank."""
+    total, split = None, {}
     for x in leaves(tree):
+        if hasattr(x, "placements"):
+            from torch.distributed.tensor import Replicate
+            x = move(x, [Replicate() if p.is_partial() else p
+                         for p in x.placements])
+            sq = torch.sum(torch.square(x.to_local().float()))
+            key = (x.device_mesh, tuple(p.is_shard() for p in x.placements))
+            split[key] = sq if key not in split else split[key] + sq
+            continue
         sq = torch.sum(torch.square(x.float()))
-        if hasattr(sq, "full_tensor"):
-            sq = sq.full_tensor()
+        total = sq if total is None else total + sq
+    for (dm, dims), sq in split.items():
+        from torch.distributed.tensor import Partial, Replicate
+        sq = reduced_out(sq, dm, [Partial() if d else Replicate()
+                                  for d in dims]).to_local()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -87,6 +100,11 @@ def adamw_update(cfg: AdamWConfig, grads, state: OptState, params, *,
     ``lr``. With ``donate`` the params and moments are updated in place
     (the new trees are the tensors given), the counterpart of the
     reference's donated buffers; the values are the same either way."""
+    if any(hasattr(m, "placements") for m in leaves(state.m)):
+        # the gradients reduced onto the moments' (ZeRO-1) shards first,
+        # one mesh dim at a time, and the norm taken there
+        grads = unflatten(grads, [move(g, m.placements) for g, m in
+                                  zip(leaves(grads), leaves(state.m))])
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
@@ -97,11 +115,10 @@ def adamw_update(cfg: AdamWConfig, grads, state: OptState, params, *,
     def upd(p, g, m, v):
         pw = p
         if hasattr(m, "placements"):
-            # DTensors: the gradient reduced and the param cut to the
-            # moments' (ZeRO-1) shards, the update made there, the new
+            # DTensors: the param cut to the moments' (ZeRO-1) shards (the
+            # gradient is there already), the update made there, the new
             # param gathered back to its own placements
-            g = g.redistribute(m.device_mesh, m.placements)
-            pw = p.redistribute(m.device_mesh, m.placements)
+            pw = move(p, m.placements)
         g = g.float() * scale
         m_new = cfg.b1 * m + (1 - cfg.b1) * g
         v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
@@ -110,7 +127,7 @@ def adamw_update(cfg: AdamWConfig, grads, state: OptState, params, *,
             step = step + cfg.weight_decay * pw.float()
         newp = (pw.float() - lr * step).to(p.dtype)
         if pw is not p:
-            newp = newp.redistribute(p.device_mesh, p.placements)
+            newp = move(newp, p.placements)
         if not donate:
             return newp, m_new, v_new
         p.copy_(newp)

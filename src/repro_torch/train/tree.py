@@ -27,14 +27,17 @@ def leaves(tree):
 def unflatten(like, flat):
     """``like``'s structure (its own key order) with its leaves replaced,
     in flatten order, by the items of ``flat``."""
-    it = iter(flat)
+    return _build(like, iter(flat))
 
-    def build(t):
-        if isinstance(t, dict):
-            vals = {k: build(t[k]) for k in sorted(t)}
-            return {k: vals[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return [build(v) for v in t]
-        return next(it)
-    return build(like)
+
+def _build(t, it):
+    # a module-level recursion: a nested one would be a reference cycle
+    # (the function in its own closure) holding ``flat`` until the
+    # garbage collector ran
+    if isinstance(t, dict):
+        vals = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: vals[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return [_build(v, it) for v in t]
+    return next(it)
 

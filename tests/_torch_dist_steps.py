@@ -1,0 +1,109 @@
+"""The port's model steps on a (data=2, model=2) mesh of 4 gloo ranks,
+held by ``tests/test_torch_sharded_steps.py`` against the same steps with
+no mesh: ``python _torch_dist_steps.py OUT`` (a subprocess, so that no
+process group outlives it) writes a pickle of, per smoke config, each
+rank's sharded results (``full_tensor()``) beside rank 0's unsharded ones.
+
+Per config: the forward's logits, the loss and every gradient leaf, and,
+for the configs with a cache the decode step places on the mesh, one
+decode step's logits and the written cache, from a cache of seeded noise
+placed by the dry run's rules (the prefix layer's cache one dim off, as
+the reference's rule places it). The decode step also runs on a
+(data=1, model=4) mesh, where qwen3's 2 KV heads do not divide "model"
+and its cache is split on the sequence instead.
+"""
+import pickle
+import sys
+
+MESH = (2, 2)
+SEQ_MESH = (1, 4)             # the decode's cache split on the sequence
+B, S, SEED = 4, 16, 3
+ARCHS = {"qwen3-1.7b": True, "deepseek-v2-236b": True,
+         "zamba2-1.2b": False}                     # arch: decode on the mesh
+
+
+def _whole(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def _steps(cfg, params, tokens, labels, cache, decode, train=True):
+    """(logits, loss, grads, decode logits, cache after) of one config on
+    whatever placements its inputs have."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves
+    out = {}
+    if train:
+        out = _train_steps(cfg, params, tokens, labels)
+    if decode:
+        with torch.no_grad():
+            dl, c = tf.decode_step(params, cfg, tokens[:, :1], cache, S - 1)
+        out["decode"] = _whole(dl).numpy()
+        out["cache"] = [_whole(x).numpy() for x in leaves(c)]
+    return out
+
+
+def _train_steps(cfg, params, tokens, labels):
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves
+    logits, _ = tf.forward(params, cfg, {"tokens": tokens})
+    loss, _ = tf.loss_fn(params, cfg, {"tokens": tokens, "labels": labels})
+    grads = torch.autograd.grad(loss, leaves(params))
+    return {"logits": _whole(logits).numpy(), "loss": float(_whole(loss)),
+            "grads": [_whole(g).numpy() for g in grads]}
+
+
+def rank_main(rank):
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.dist.sharding import PSpec, distribute, param_pspecs
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import batch_pspec, cache_pspecs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves, unflatten
+    torch.manual_seed(SEED)
+    meshes = {"2x2": make_mesh(MESH, ("data", "model")),
+              "1x4": make_mesh(SEQ_MESH, ("data", "model"))}
+    res = {}
+    for arch, decode in ARCHS.items():
+        cfg = smoke_config(arch).replace(param_dtype="float32",
+                                         activation_dtype="float32")
+        params = tf.init_params(cfg, SEED, "cpu")
+        for p in leaves(params):
+            p.requires_grad_(True)
+        g = torch.Generator().manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+        cache = None
+        if decode:
+            cache = tf.init_cache(cfg, B, S, device="cpu")
+            cache = unflatten(cache, [torch.randn(x.shape, generator=g)
+                                      .to(x.dtype) for x in leaves(cache)])
+        labels = tokens.roll(-1, 1)
+        want = _steps(cfg, params, tokens, labels,
+                      unflatten(cache, [x.clone() for x in leaves(cache)])
+                      if decode else None, decode)
+        got = {}
+        for name, mesh in meshes.items():
+            if name != "2x2" and not decode:
+                continue
+            with use_mesh(mesh):
+                sp = distribute(params, param_pspecs(params, mesh))
+                for p in leaves(sp):
+                    p.requires_grad_(True)
+                rows = PSpec(mesh, (batch_pspec(mesh, B),))
+                tok, lab = distribute(tokens, rows), distribute(labels, rows)
+                sc = (distribute(cache, cache_pspecs(cache, mesh))
+                      if decode else None)
+                got[name] = _steps(cfg, sp, tok, lab, sc, decode,
+                                   train=name == "2x2")
+        res[arch] = {"got": got, "want": want if rank == 0 else None}
+    return res
+
+
+if __name__ == "__main__":
+    from repro_torch.launch.mesh import run_local
+    out = run_local(MESH[0] * MESH[1], rank_main, threads=1)
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(out, f)

@@ -4,7 +4,12 @@ train, deepseek-v2 decode, zamba2 prefill on (data=2, model=4) and
 (pod=2, data=2, model=2)) are traced in one subprocess, each on a fake
 process group of 8 ranks: FLOPs above 0, the multi-pod cells
 communicate, and their per-device argument bytes equal those of the
-reference's compiled cells (a second subprocess, 8 fake XLA devices).
+reference's compiled cells (a second subprocess, 8 fake XLA devices,
+whose temp buffers are read from XLA's dump). Each cell's temp is held
+to the reference's, its collectives, FLOPs and temp to
+``tests/torch_dryrun_pins.json``, and the qwen3 cells' logits are never
+gathered whole. The pins' full-width cells give the reference's
+fits-in-80-GB verdicts.
 The same subprocess traces two cells at 0 to 3 periods: the
 port has no scan, so FLOPs are exactly linear in the periods (the
 reference needs probes and a scaling rule for that). At full width,
@@ -13,6 +18,7 @@ argument bytes that the reference's specs give (placing meta tensors, no
 step traced)."""
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -24,48 +30,46 @@ from jax.sharding import AbstractMesh
 SCRIPT = r"""
 import json
 from repro_torch.configs import smoke_config
-from repro_torch.configs.base import ShapeConfig
-from repro_torch.launch.dryrun import trace_cell, tune_config
+from repro_torch.launch.dryrun import (SMOKE_CELLS, summary, trace_cell,
+                                       trace_smoke, tune_config)
 from repro_torch.launch.mesh import fake_group, make_mesh
 
-CELLS = [("qwen3-1.7b", ShapeConfig("t", 64, 8, "train")),
-         ("deepseek-v2-236b", ShapeConfig("d", 64, 8, "decode")),
-         ("zamba2-1.2b", ShapeConfig("p", 64, 8, "prefill"))]
 out = {}
-for mesh_name, dims, axes in [("single", (2, 4), ("data", "model")),
-                              ("multi", (2, 2, 2), ("pod", "data", "model"))]:
-    with fake_group(8):
-        mesh = make_mesh(dims, axes)
-        for arch, shape in CELLS:
-            cfg = tune_config(smoke_config(arch), shape.kind)
+for k, m in trace_smoke().items():
+    out[k] = dict(summary(m), colls=sum(m["collectives"]["counts"].values()),
+                  wire=m["collectives"]["total_wire_bytes"],
+                  memory=m["memory"], shapes=m["collectives"]["shapes"])
+with fake_group(8):
+    mesh = make_mesh((2, 4), ("data", "model"))
+    for arch, shape in (SMOKE_CELLS[0], SMOKE_CELLS[2]):
+        base = smoke_config(arch)
+        for n in (0, 1, 2, 3):
+            cfg = tune_config(base.with_layers(n * base.probe_period),
+                              shape.kind)
             m = trace_cell(cfg, shape, mesh, shape.kind)
-            out[f"{mesh_name}/{arch}/{shape.kind}"] = {
-                "flops": m["flops"],
-                "colls": sum(m["collectives"]["counts"].values()),
-                "wire": m["collectives"]["total_wire_bytes"],
-                "memory": m["memory"]}
-        if mesh_name == "single":
-            for arch, shape in (CELLS[0], CELLS[2]):
-                base = smoke_config(arch)
-                for n in (0, 1, 2, 3):
-                    cfg = tune_config(base.with_layers(n * base.probe_period),
-                                      shape.kind)
-                    m = trace_cell(cfg, shape, mesh, shape.kind)
-                    out[f"periods/{arch}/{n}"] = m["flops"]
+            out[f"periods/{arch}/{n}"] = m["flops"]
 print(json.dumps(out))
 """
 
 
-# the reference's compiled twin of SCRIPT's six cells, on 8 fake XLA devices
+# the reference's compiled twin of SCRIPT's six cells, on 8 fake XLA
+# devices, each step's temp buffers read from XLA's dump
+# (``tests/_dryrun_reference.py``)
 REF_SCRIPT = r"""
-import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import os, shutil, sys, tempfile
+dump = tempfile.mkdtemp()
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           f"--xla_dump_to={dump} --xla_dump_hlo_as_text")
+import jax
+jax.devices()            # these flags, before repro.launch.dryrun sets its own
 import json
 from repro.configs import smoke_config
 from repro.configs.base import ShapeConfig
 from repro.launch.dryrun import lower_cell, tune_config
 from repro.launch.hlo_metrics import compiled_metrics
 from repro.launch.mesh import make_mesh
+sys.path.insert(0, os.environ["TESTS_DIR"])
+from _dryrun_reference import temp_buffers
 
 out = {}
 for mesh_name, dims, axes in [("single", (2, 4), ("data", "model")),
@@ -75,10 +79,26 @@ for mesh_name, dims, axes in [("single", (2, 4), ("data", "model")),
                         ("deepseek-v2-236b", ShapeConfig("d", 64, 8, "decode")),
                         ("zamba2-1.2b", ShapeConfig("p", 64, 8, "prefill"))]:
         cfg = tune_config(smoke_config(arch), shape.kind)
+        before = set(os.listdir(dump))
         m = compiled_metrics(lower_cell(cfg, shape, mesh, shape.kind), 8)
-        out[f"{mesh_name}/{arch}/{shape.kind}"] = m["memory"]
+        cell = os.path.join(dump, "cell")
+        os.makedirs(cell)
+        for f in set(os.listdir(dump)) - before - {"cell"}:
+            shutil.move(os.path.join(dump, f), cell)
+        b = temp_buffers(cell)
+        shutil.rmtree(cell)
+        out[f"{mesh_name}/{arch}/{shape.kind}"] = dict(
+            m["memory"], live_peak=b["live_peak"],
+            cpu_copies=b["cpu_copies"],
+            live_peak_less_cpu_copies=b["live_peak_less_cpu_copies"])
+shutil.rmtree(dump)
 print(json.dumps(out))
 """
+
+PINS = os.path.join(os.path.dirname(__file__), "torch_dryrun_pins.json")
+SMOKE = ["single/qwen3-1.7b/train", "single/deepseek-v2-236b/decode",
+         "single/zamba2-1.2b/prefill", "multi/qwen3-1.7b/train",
+         "multi/deepseek-v2-236b/decode", "multi/zamba2-1.2b/prefill"]
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +108,8 @@ def traced():
     memory records under "ref"."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="2", JAX_PLATFORMS="cpu",
-               PYTHONPATH=src)
+               PYTHONPATH=src, TESTS_DIR=os.path.dirname(
+                   os.path.abspath(__file__)))
     procs = [subprocess.Popen([sys.executable, "-c", code], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for code in (SCRIPT, REF_SCRIPT)]
@@ -189,3 +210,91 @@ def test_full_width_decode_argument_bytes_match_reference_specs():
         got = argument_bytes(args)
     assert got == want
     assert got < 80e9
+
+
+# port temp over the reference's, by cell kind. Train: over its compiled
+# temp. Decode and prefill: over the largest sum of temp buffers live at
+# once in XLA's program less the f32 copies XLA's CPU backend makes of
+# the step's bf16 inputs before the layer loop
+# (``tests/_dryrun_reference.py``; no eager step makes them), in a band
+# tied to the buffers PERF.md's dry-run findings name: decode, XLA
+# gathers each layer's experts whole in f32 (its CPU copy, twice the
+# port's bf16 gather: 1.0 of deepseek-v2's 1.09 MiB here, 18.75 of 18.83
+# GiB at full width); prefill, XLA splits zamba2's mamba in_proj over
+# "model", so its per-rank scan buffers scale as 1/model (1.77 MiB on
+# model=4, 3.27 on model=2), where the port gathers each layer's weights
+# and runs every head on every rank (2.59 MiB on both meshes)
+BANDS = {"train": (0.8, 1.25), "decode": (0.4, 1.25), "prefill": (0.6, 1.6)}
+
+
+@pytest.mark.parametrize("cell", SMOKE)
+def test_temp_held_to_reference(traced, cell):
+    got = traced[cell]["memory"]["temp_bytes"]
+    ref = traced["ref"][cell]
+    kind = cell.rsplit("/", 1)[1]
+    want = ref["temp_bytes"] if kind == "train" else \
+        ref["live_peak_less_cpu_copies"]
+    lo, hi = BANDS[kind]
+    assert lo <= got / want <= hi, (cell, got, ref)
+    assert ref["live_peak"] <= ref["temp_bytes"]
+
+
+@pytest.mark.parametrize("cell", SMOKE)
+def test_smoke_cell_matches_pins(traced, cell):
+    """The trace is a function of the tree: each smoke cell's collective
+    counts by kind and argument bytes equal the pinned ones, its FLOPs
+    and temp within 2% (``chip_smoke.py`` phase 16c holds the card's
+    host, another torch, to the same file)."""
+    with open(PINS) as f:
+        pin = json.load(f)["cells"][cell]
+    got = traced[cell]
+    assert got["collectives"] == pin["collectives"], cell
+    assert got["argument_bytes"] == pin["argument_bytes"], cell
+    for k in ("flops", "temp_bytes"):
+        assert abs(got[k] / pin[k] - 1) <= 0.02, (cell, k, got[k], pin[k])
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_logits_never_gathered_whole(traced, mesh):
+    """In the qwen3 train cell no all-gather's result holds as many
+    elements as one rank's rows of logits over the whole vocabulary
+    (4 rows x 64 tokens x 512): the logits stay split on the vocabulary
+    through the f32 cast, the logsumexp and the gold logit, forward and
+    backward. Before the fix, torch 2.13's DTensor gathered them whole
+    over "model" (at full width one f32 [256, 4096, 9496] all-gather)."""
+    whole = 4 * 64 * 512
+    for key in traced[f"{mesh}/qwen3-1.7b/train"]["shapes"]:
+        if key.startswith("all-gather"):
+            dims = re.search(r"\[([\d, ]*)\]", key).group(1).split(",")
+            assert int(np.prod([int(d) for d in dims])) < whole, key
+
+
+def test_full_width_pins_give_reference_verdicts():
+    """The pinned full-width cells (``python -m repro_torch.launch.dryrun
+    --pins``: traced in 15-45 s each on this CPU, so not in this suite)
+    against the reference's compiled values pinned beside them
+    (``tests/_dryrun_reference.py --pins``): argument bytes equal, qwen3
+    ``train_4k``'s temp within 0.8-1.25x of the reference's, and each
+    cell's fits-in-80-GB verdict (argument + temp under 80e9 B) the
+    reference's once XLA's CPU copies of the step's bf16 inputs are taken
+    out. Taken as compiled, the reference's deepseek-v2 ``decode_32k``
+    does not fit: 55.67 of its 75.02 GiB of temp are f32 copies of the
+    stacked bf16 expert weights and caches, made before the layer loop
+    because the CPU has no bf16 dot."""
+    with open(PINS) as f:
+        pins = json.load(f)
+    ref = pins["reference"]["cells"]
+    for cell in ("single/qwen3-1.7b/train_4k",
+                 "multi/deepseek-v2-236b/decode_32k"):
+        got, want = pins["cells"][cell], ref[cell]
+        assert got["argument_bytes"] == want["argument_bytes"], cell
+        port_fits = got["argument_bytes"] + got["temp_bytes"] < 80e9
+        less = want["argument_bytes"] + want["live_peak_less_cpu_copies"]
+        assert port_fits == (less < 80e9), cell
+    q = pins["cells"]["single/qwen3-1.7b/train_4k"]
+    qref = ref["single/qwen3-1.7b/train_4k"]
+    assert 0.8 <= q["temp_bytes"] / qref["temp_bytes"] <= 1.25
+    assert (q["argument_bytes"] + q["temp_bytes"] < 80e9) == \
+        (qref["argument_bytes"] + qref["temp_bytes"] < 80e9)
+    d = ref["multi/deepseek-v2-236b/decode_32k"]
+    assert d["argument_bytes"] + d["temp_bytes"] > 80e9

@@ -166,3 +166,45 @@ def test_memory_keys_on_plain_tensors():
     assert mem["output_bytes"] == 1024 + 4
     assert mem["code_bytes"] == 0
     assert m["flops"] == 0 and m["bytes_accessed"] > 0
+
+
+def test_recorder_releases_meta_storages():
+    """A meta storage leaves the count when its last tensor dies: a chain
+    of ten 4 KiB results, each dropping the one before, peaks at two of
+    them (the step's own argument is not temp), and views are free."""
+    def step(x):
+        y = x.view(32, 32)
+        for _ in range(10):
+            y = y * 2
+        return y.view(-1)
+
+    m, _ = traced_metrics(step, torch.empty(1024, device="meta"))
+    assert m["memory"]["temp_bytes"] == 2 * 4096
+
+
+def test_recorder_counts_a_collective_wrapper_once():
+    """A collective's autograd wrapper is its input under another storage
+    (its meta kernel allocates one, a real run wraps): one logical
+    tensor, counted once, and live while either lives."""
+    wrap = torch.ops._c10d_functional._wrap_tensor_autograd
+
+    def step(x):
+        w = wrap(x * 2)              # 4 KiB, the product's own storage
+        return w + 1                 # 4 KiB more while w lives: 8 KiB
+
+    m, _ = traced_metrics(step, torch.empty(1024, device="meta"))
+    assert m["memory"]["temp_bytes"] == 2 * 4096
+
+
+def test_trace_repeats_exactly(mesh24):
+    """Two traces of one sharded step in one process give the same
+    temp (entries are keyed by id, so a storage address reused after a
+    free is a new storage) and the same collectives."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell, tune_config
+    shape = ShapeConfig("t", 32, 8, "train")
+    cfg = tune_config(smoke_config("qwen3-1.7b"), shape.kind)
+    a, b = (trace_cell(cfg, shape, mesh24, "train") for _ in range(2))
+    assert a["memory"]["temp_bytes"] == b["memory"]["temp_bytes"]
+    assert a["collectives"]["shapes"] == b["collectives"]["shapes"]
