@@ -1691,9 +1691,57 @@ def ssd_phase(torch, seed):
             result.update(row)
         else:
             result[key] = row
+    result.update(_ssm_train_cost(torch, cases[0][3], L))
     del outs, cases, q, k, v, decays
     torch.cuda.empty_cache()
     return counts, result
+
+
+def _ssm_train_cost(torch, args, L):
+    """What training pays for ``chunked_linear_attn`` recomputing each
+    chunk in the backward pass (``ssm._Recomputed``): forward and backward
+    on ``args`` (the bf16 mamba2 case) against the same chunk steps with
+    autograd keeping every chunk's [B, n, l, l, H, K] pairs, device ms and
+    peak GiB each; the two gradients must agree within f32 rounding."""
+    from repro_torch.models import ssm
+    B, T, H, K = args[0].shape
+    P = args[2].shape[-1]
+    ins = [a.detach().requires_grad_() for a in args]
+
+    def kept(q, k, v, w):
+        state = torch.zeros(B, H, K, P, device=q.device)
+        qf, kf, vf, wf = (a.float() for a in (q, k, v, w))
+        ys = []
+        for c0 in range(0, T, L):
+            sl = slice(c0, c0 + L)
+            state, y = ssm._chunk_step(state, qf[:, sl], kf[:, sl],
+                                       vf[:, sl], wf[:, sl], True, None)
+            ys.append(y)
+        return torch.cat(ys, dim=1).to(q.dtype), state
+
+    def grads(scan):
+        y, state = scan(*ins)
+        return torch.autograd.grad(y.float().sum() + state.sum(), ins)
+
+    row, got = {}, {}
+    for name, scan in (("recomputed", lambda *a: ssm.chunked_linear_attn(
+            *a, chunk=L)), ("kept", kept)):
+        _free(torch)
+        got[name] = grads(scan)
+        torch.cuda.synchronize()
+        peak = _peak_gib(torch)
+        row[name] = (cuda_ms(lambda: grads(scan), iters=3, warmup=1), peak)
+    rel = max(_rel(torch, a, b) for a, b in zip(got["recomputed"],
+                                                  got["kept"]))
+    log(f"  training through chunked_linear_attn (forward + backward, B {B}"
+        f" T {T} H {H} K {K} P {P}, chunk {L}, bf16 inputs): each chunk "
+        f"recomputed in backward {row['recomputed'][0]:.2f} ms, peak "
+        f"{row['recomputed'][1]:.2f} GiB; every chunk's pairs kept "
+        f"{row['kept'][0]:.2f} ms, peak {row['kept'][1]:.2f} GiB; gradients "
+        f"rel L2 {rel:.3e} (limit 1e-5)")
+    require(rel <= 1e-5, f"recomputed SSM gradients off by {rel:.3e}")
+    return {"model_path_train_ms": row["recomputed"][0],
+            "model_path_train_kept_ms": row["kept"][0]}
 
 
 def _rel(torch, a, b):
@@ -4072,39 +4120,69 @@ SHARD_STEPS = 3
 # DTensors; bit-equal since they run on local tensors, PERF.md)
 SHARD_LOSS_TOL = 1e-6
 SHARD_STEP_TOL = 1e-4
-# the dry run's cells at full width, each in a subprocess of its own (a
-# fake process group cannot share a process with NCCL)
-DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
-                ("deepseek-v2-236b", "decode_32k", "multi"))
+# the dry run's cells at full width are the pinned ones
+# (``repro_torch.launch.dryrun.PIN_CELLS``), each in a subprocess of its
+# own (a fake process group cannot share a process with NCCL)
 DRYRUN_TIMEOUT = 900
+# phase 16c's dry run starts with phase DRYRUN_START when the run goes on
+# to phase 16 (with phase 16 itself under --from 16) and runs beside
+# phases 14-16b, one thread each at the lowest priority: rwkv6-7b
+# train_4k traces in 186-233 s on the card's host, and started after
+# 16a's timed steps instead, it took all sixteen phases to 1038.8 s of
+# the 1200 s limit on a slow host. Phase 14's forward wall and 15a's and
+# 16a's steps are read beside it: compare them within one run
+DRYRUN_START = 14
+_DRYRUN = {}
+
+
+def _start_dryrun():
+    """Start phase 16c's dry-run subprocesses once (``_dryrun_procs``);
+    returns {"procs", "t0"}."""
+    if not _DRYRUN:
+        _DRYRUN.update(procs=_dryrun_procs(ROOT / "build" / "phase16"
+                                           / "dryrun"),
+                       t0=time.perf_counter())
+    return _DRYRUN
+
+
+def _stop_dryrun():
+    """Kill whatever of the dry run still runs (a phase failed)."""
+    for _, _, p in _DRYRUN.get("procs", ()):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 # the pinned traces (this tree's, on the build host's torch) and the
 # reference's compiled values beside them; a trace here must have the
 # same collective counts by kind, its FLOPs and temp within PIN_TOL
 PINS = ROOT / "tests" / "torch_dryrun_pins.json"
 PIN_TOL = 0.02
-H100_BYTES = 80e9
 
 
 def _dryrun_procs(out):
-    """Start the DRYRUN_CELLS as ``python -m repro_torch.launch.dryrun``
-    subprocesses on the host (no card), all at once; returns them with
-    their record paths."""
+    """Start the pinned full-width cells (``PIN_CELLS``) and the smoke
+    cells as ``python -m repro_torch.launch.dryrun`` subprocesses on the
+    host (no card, one thread each, at the lowest priority), all at once;
+    returns them with their record paths."""
     import os
+    import shutil
+    from repro_torch.launch.dryrun import PIN_CELLS
+    shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     procs = []
     cmds = [([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
               arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
               "--force"], out / f"{arch}__{shape}__{mesh}.json")
-            for arch, shape, mesh in DRYRUN_CELLS]
+            for arch, shape, mesh in PIN_CELLS]
     cmds.append(([sys.executable, "-m", "repro_torch.launch.dryrun",
                   "--smoke", str(out / "smoke.json")], out / "smoke.json"))
     for cmd, path in cmds:
         procs.append((cmd, path,
                       subprocess.Popen(cmd, env=env, cwd=ROOT,
                                        stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True)))
+                                       stderr=subprocess.PIPE, text=True,
+                                       preexec_fn=lambda: os.nice(19))))
     return procs
 
 
@@ -4112,8 +4190,9 @@ def _against_pins(traced):
     """Hold each traced cell ({"<mesh>/<arch>/<shape>": summary}) to the
     pins: collective counts by kind equal, FLOPs and temp within PIN_TOL;
     then each full-width cell's fits-in-80-GB verdict to the reference's
-    once its CPU copies of bf16 inputs are out (the reference's as
-    compiled printed beside it)."""
+    once its CPU copies of bf16 inputs are out (printed beside the
+    reference's as compiled)."""
+    from repro_torch.launch.dryrun import fits as fit
     pins = json.loads(PINS.read_text())
     log(f"  (c) against {PINS.name} (torch {pins['torch']}, "
         f"{pins['command']}):")
@@ -4137,7 +4216,7 @@ def _against_pins(traced):
         port = got["argument_bytes"] + got["temp_bytes"]
         as_compiled = want["argument_bytes"] + want["temp_bytes"]
         less = want["argument_bytes"] + want["live_peak_less_cpu_copies"]
-        fits = lambda b: "fits" if b < H100_BYTES else "does not fit"
+        fits = lambda b: "fits" if fit(b, 0) else "does not fit"
         log(f"      {cell} in 80 GB (argument + temp): port "
             f"{port / 1e9:.3f} GB {fits(port)}; reference compiled (jax "
             f"{ref['jax']}, CPU) {as_compiled / 1e9:.3f} GB "
@@ -4147,7 +4226,7 @@ def _against_pins(traced):
             f"reference's {got['temp_bytes'] / want['temp_bytes']:.3f}")
         require(fits(port) == fits(less),
                 f"{cell}: the port {fits(port)} in 80 GB, the reference "
-                f"{fits(less)}")
+                f"{fits(less)} less its copies")
 
 
 def _dryrun_results(procs, t0):
@@ -4170,7 +4249,8 @@ def _dryrun_results(procs, t0):
             traced.update({k: {x: v[x] for x in ("flops", "argument_bytes",
                                                  "temp_bytes", "collectives")}
                            for k, v in rec["cells"].items()})
-            log(f"  (c) the six smoke cells traced (torch {rec['torch']})")
+            log(f"  (c) {len(rec['cells'])} smoke cells traced (torch "
+                f"{rec['torch']})")
             continue
         require(rec["ok"], f"dry run cell not ok: {rec.get('error')}\n"
                            f"{rec.get('traceback', '')[-2500:]}")
@@ -4219,8 +4299,9 @@ def sharding_phase(torch, seed, smi):
     within SHARD_STEP_TOL (see there); (b) the unsharded trainer's params, checkpointed,
     restored onto the mesh (``restore(shardings=...)``): every leaf's
     ``full_tensor()`` bit-equal; (c) the dry run at full width, each of
-    DRYRUN_CELLS in its own subprocess on the host, and the six smoke
-    cells in a third, started first and read last: each records ``ok``,
+    the four pinned cells in its own subprocess on the host, and the
+    sixteen smoke cells in another, started with phase DRYRUN_START (or
+    first) and read last: each records ``ok``,
     each cell's trace matches the pins (``_against_pins``), and each
     full-width cell gives the reference's fits-in-80-GB verdict."""
     import shutil
@@ -4233,8 +4314,9 @@ def sharding_phase(torch, seed, smi):
     from repro_torch.train.tree import leaves
     t0 = time.perf_counter()
     out = ROOT / "build" / "phase16"
-    shutil.rmtree(out, ignore_errors=True)
-    procs = _dryrun_procs(out / "dryrun")
+    shutil.rmtree(out / "ckpt", ignore_errors=True)
+    dry = _start_dryrun()
+    log(f"  (c) the dry run started {t0 - dry['t0']:.1f}s before phase 16")
     cfg = get_config("qwen3-1.7b").replace(remat="full")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                     global_batch=1, seed=seed)
@@ -4284,7 +4366,7 @@ def sharding_phase(torch, seed, smi):
         require(all(equal), "a resharded leaf differs from the checkpoint")
         del got, want
         _free(torch)
-    _dryrun_results(procs, t0)
+    _dryrun_results(dry["procs"], dry["t0"])
     log(f"  phase 16 wall {time.perf_counter() - t0:.1f}s")
 
 
@@ -4464,10 +4546,15 @@ def main():
         result = early_phases(torch, args, kres)
         if result is None:
             return 1
-    for n in range(max(args.start, 10), args.until + 1):
-        title, run = LATER_PHASES[n]
-        log(f"== phase {n}: {title}")
-        run(torch, args.seed, smi, kres)
+    try:
+        for n in range(max(args.start, 10), args.until + 1):
+            title, run = LATER_PHASES[n]
+            if n >= DRYRUN_START and args.until >= 16:
+                _start_dryrun()
+            log(f"== phase {n}: {title}")
+            run(torch, args.seed, smi, kres)
+    finally:
+        _stop_dryrun()
     if args.start > 4 or args.until < 16:
         log(f"== phases {args.start}-{args.until} passed; the others "
             "skipped: no result lines")

@@ -20,9 +20,14 @@ nothing.
 Every placement inside a model block is stated
 (``repro_torch.dist.sharding``), so the trace is a function of the tree,
 not of the installed torch's sharding rules: ``tests/torch_dryrun_pins.json``
-pins the six smoke cells (``SMOKE_CELLS``) and two full-width cells
-(``PIN_CELLS``), and ``chip_smoke.py`` phase 16c holds the GPU machine's
-torch to it. A record names the torch that traced it.
+pins the smoke cells (``SMOKE_CELLS``, each on both ``SMOKE_MESHES``) and
+four full-width cells (``PIN_CELLS``), and ``chip_smoke.py`` phase 16c
+holds the GPU machine's torch to it. A record names the torch that traced
+it. ``--grid`` traces the reference's whole applicable grid, one
+subprocess a run, several at once, into one file
+(``tests/torch_dryrun_grid.json``), beside which
+``tests/_dryrun_reference.py --grid`` writes the reference's compiled
+values.
 
 Usage:
     python -m repro_torch.launch.dryrun                  # all cells, both meshes
@@ -30,6 +35,7 @@ Usage:
     python -m repro_torch.launch.dryrun --mesh multi --force
     python -m repro_torch.launch.dryrun --smoke FILE     # the smoke cells
     python -m repro_torch.launch.dryrun --pins FILE      # write the pins
+    python -m repro_torch.launch.dryrun --grid FILE --jobs 6   # every run
 Artifacts: artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json  (resumable)
 """
 import argparse
@@ -45,16 +51,34 @@ from ..train.optimizer import AdamWConfig
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "artifacts", "dryrun_torch")
 
-# the smoke cells: three architectures at smoke widths on two 8-rank
+# the smoke cells: six architectures at smoke widths on two 8-rank
 # meshes ("<mesh>/<arch>/<kind>": mesh dims and axes, arch, shape)
 SMOKE_MESHES = {"single": ((2, 4), ("data", "model")),
                 "multi": ((2, 2, 2), ("pod", "data", "model"))}
-SMOKE_CELLS = (("qwen3-1.7b", ShapeConfig("t", 64, 8, "train")),
-               ("deepseek-v2-236b", ShapeConfig("d", 64, 8, "decode")),
-               ("zamba2-1.2b", ShapeConfig("p", 64, 8, "prefill")))
+_TRAIN, _DECODE = ShapeConfig("t", 64, 8, "train"), \
+    ShapeConfig("d", 64, 8, "decode")
+SMOKE_CELLS = (("qwen3-1.7b", _TRAIN),
+               ("deepseek-v2-236b", _DECODE),
+               ("zamba2-1.2b", ShapeConfig("p", 64, 8, "prefill")),
+               ("whisper-small", _TRAIN), ("whisper-small", _DECODE),
+               ("llama-3.2-vision-90b", _TRAIN),
+               ("llama-3.2-vision-90b", _DECODE),
+               ("rwkv6-7b", _TRAIN))
 # the full-width cells pinned beside them (arch, shape, mesh)
 PIN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
-             ("deepseek-v2-236b", "decode_32k", "multi"))
+             ("deepseek-v2-236b", "decode_32k", "multi"),
+             ("llama-3.2-vision-90b", "decode_32k", "multi"),
+             ("rwkv6-7b", "train_4k", "single"))
+
+
+# a cell fits one H100 when its per-device argument and temp bytes
+# together stay under the card's 80 GB
+H100_BYTES = 80e9
+
+
+def fits(argument_bytes: float, temp_bytes: float) -> bool:
+    """The fits-in-80-GB verdict of a cell's per-device bytes."""
+    return argument_bytes + temp_bytes < H100_BYTES
 
 
 def cell_mode(shape: ShapeConfig) -> str:
@@ -133,13 +157,15 @@ def summary(m: dict) -> dict:
             "collectives": dict(sorted(m["collectives"]["counts"].items()))}
 
 
-def trace_smoke() -> dict:
-    """Trace the SMOKE_CELLS, each on a fake process group of 8 ranks;
-    returns ``traced_metrics``'s dict a cell, by "<mesh>/<arch>/<kind>"."""
+def trace_smoke(meshes=tuple(SMOKE_MESHES)) -> dict:
+    """Trace the SMOKE_CELLS on each of ``meshes`` (names of
+    SMOKE_MESHES), each on a fake process group of 8 ranks; returns
+    ``traced_metrics``'s dict a cell, by "<mesh>/<arch>/<kind>"."""
     from ..configs import smoke_config
     from .mesh import fake_group, make_mesh
     out = {}
-    for mesh_name, (dims, axes) in SMOKE_MESHES.items():
+    for mesh_name in meshes:
+        dims, axes = SMOKE_MESHES[mesh_name]
         with fake_group(8):
             mesh = make_mesh(dims, axes)
             for arch, shape in SMOKE_CELLS:
@@ -178,6 +204,78 @@ def write_pins(path: str, argv) -> dict:
         json.dump(pins, f, indent=1)
         f.write("\n")
     return pins
+
+
+def grid_runs():
+    """(arch, shape, mesh) of every run of the reference's applicable
+    grid (``dryrun_cells``, both meshes), the slowest kinds first."""
+    runs = [(cfg.name, shape.name, mk) for cfg, shape, ok, _ in dryrun_cells()
+            if ok for mk in ("single", "multi")]
+    first = {"train": 0, "prefill": 1, "decode": 2}
+    return sorted(runs, key=lambda r: (first[SHAPES[r[1]].kind],
+                                       r[2] != "multi"))
+
+
+def _grid_run(run, out_dir: str, env: dict):
+    """Trace one (arch, shape, mesh) run of the grid in a subprocess of its
+    own; returns ("<mesh>/<arch>/<shape>", its :func:`summary` with
+    ``ok`` and ``elapsed_s``, or its error)."""
+    import subprocess
+    import sys
+    arch, shape, mesh = run
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", out_dir, "--force"],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            r = json.load(f)
+    else:
+        r = {"ok": False, "elapsed_s": None,
+             "error": f"exit {proc.returncode}: {proc.stderr[-400:]}"}
+    key = f"{mesh}/{arch}/{shape}"
+    print(f"{'ok' if r['ok'] else 'FAIL':5s} {key:40s} ({r['elapsed_s']} s)",
+          flush=True)
+    return key, ({"ok": True, "elapsed_s": r["elapsed_s"],
+                  **summary(r["main"])} if r["ok"] else
+                 {"ok": False, "elapsed_s": r["elapsed_s"],
+                  "error": r["error"]})
+
+
+def write_grid(path: str, argv, jobs: int) -> dict:
+    """Trace every run of :func:`grid_runs`, each in a subprocess of its
+    own (``jobs`` at once, one thread each), and write each one's
+    :func:`summary` (or its error: a run that cannot be traced is a
+    ``FAIL`` entry, never left out) to ``path`` (JSON) with the command
+    and the torch that wrote them, keeping the file's "reference" entry
+    (``tests/_dryrun_reference.py --grid``)."""
+    import sys
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    old = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(jobs) as ex:
+        cells = dict(ex.map(lambda run: _grid_run(run, d, env), grid_runs()))
+    grid = {"command": " ".join(["python -m repro_torch.launch.dryrun"]
+                                + list(argv)),
+            "torch": torch.__version__, "python": sys.version.split()[0],
+            "wall_s": round(time.time() - t0, 1),
+            "cells": dict(sorted(cells.items()))}
+    if "reference" in old:
+        grid["reference"] = old["reference"]
+    with open(path, "w") as f:
+        json.dump(grid, f, indent=1)
+        f.write("\n")
+    n_ok = sum(c["ok"] for c in cells.values())
+    print(f"\n{n_ok}/{len(cells)} runs traced in {grid['wall_s']} s")
+    return grid
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -242,7 +340,15 @@ def main(argv=None):
                     help="trace the smoke cells into FILE (JSON) and stop")
     ap.add_argument("--pins", default=None, metavar="FILE",
                     help="trace the smoke and pinned cells, write FILE")
+    ap.add_argument("--grid", default=None, metavar="FILE",
+                    help="trace every applicable run, write FILE")
+    ap.add_argument("--jobs", type=int, default=4,
+                    help="--grid: runs traced at once")
     args = ap.parse_args(argv)
+    if args.grid:
+        import sys
+        return write_grid(args.grid, sys.argv[1:] if argv is None else argv,
+                          args.jobs)
     if args.pins:
         import sys
         return write_pins(args.pins, sys.argv[1:] if argv is None else argv)

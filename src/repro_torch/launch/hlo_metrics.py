@@ -156,13 +156,19 @@ def local_bytes(tree) -> int:
     return sum(_nbytes(_local(t)) for t in _tensors(tree))
 
 
-def argument_bytes(args) -> int:
+def argument_bytes(args, read=None) -> int:
     """A step's ``argument_bytes``: its tensors' local bytes, and 4 for
     each Python int (a decode step's position, which the reference passes
-    as an int32 scalar)."""
+    as an int32 scalar). Given ``read`` (the storages the step's ops
+    read or it returns), only those tensors count: XLA drops an argument
+    its program neither reads nor returns (whisper's encoder weights in a
+    decode step that is given the encoder output)."""
     ints = sum(1 for a in args if isinstance(a, int)
                and not isinstance(a, bool))
-    return local_bytes(args) + 4 * ints
+    ts = [_local(t) for t in _tensors(args)]
+    if read is not None:
+        ts = [t for t in ts if t.untyped_storage()._cdata in read]
+    return sum(_nbytes(t) for t in ts) + 4 * ints
 
 
 def _in_propagation() -> bool:
@@ -204,6 +210,7 @@ class _Recorder:
         self._seen = {}         # live entry -> [bytes, op, storages held]
         self._addr = {}         # live storage address -> its entry
         self._entries = 0       # entries made
+        self.read = set()       # storages the local ops read
 
     def _track(self, t, op):
         st = t.untyped_storage()
@@ -282,6 +289,8 @@ class _Recorder:
         aliases = schema is not None and (
             func.is_view or any(a.alias_info is not None
                                 for a in schema.returns))
+        if not aliases:         # a view reads nothing
+            self.read.update(t.untyped_storage()._cdata for t in ins)
         if name in _WRAPS and ins and isinstance(out, torch.Tensor):
             self._alias(out, ins[0])
         elif not aliases:
@@ -322,8 +331,8 @@ def traced_metrics(step, *args) -> dict:
       input once and each output once, summed over the ops: what the step
       would move if no two ops were fused. XLA's number is after fusion, so
       this one is an upper bound on it, not the same quantity;
-    - ``memory``: ``argument_bytes`` is the local shard bytes of ``args``
-      (:func:`argument_bytes`);
+    - ``memory``: ``argument_bytes`` is the local shard bytes of the
+      ``args`` the step reads or returns (:func:`argument_bytes`);
       ``output_bytes`` those of the result; ``alias_bytes`` those of the
       results that are arguments updated in place (the counterpart of
       donated buffers); ``temp_bytes`` the peak of live local storages the
@@ -355,7 +364,9 @@ def traced_metrics(step, *args) -> dict:
         "flops": rec.flops,
         "bytes_accessed": rec.bytes,
         "memory": {
-            "argument_bytes": argument_bytes(args),
+            "argument_bytes": argument_bytes(
+                args, rec.read | {_local(t).untyped_storage()._cdata
+                                  for t in outs}),
             "output_bytes": local_bytes(out),
             "temp_bytes": rec.peak,
             "alias_bytes": alias,

@@ -170,24 +170,27 @@ def _ein(eq, a, w):
     return whole_product(eq, a, w, spec)
 
 
-def _whole_heads(fn, p, x, cfg, **kw):
-    """``fn(p, x, cfg, **kw)`` (a full-sequence attention block) on each
-    rank's local tensors, every head on every rank: ``x`` as it is placed
-    (rows over the batch axes), each weight but ``wo`` gathered whole,
-    ``wo`` split on d_model as it is placed; the output, split on d_model
-    as that product leaves it, gathered to ``x``'s placement (XLA's
-    placement of the reference's attention)."""
+def _whole_heads(fn, p, x, cfg, *ctx, **kw):
+    """``fn(p, x, *ctx, cfg, **kw)`` (a full-sequence attention block) on
+    each rank's local tensors, every head on every rank: ``x`` as it is
+    placed (rows over the batch axes), each context tensor of ``ctx``
+    (cross-attention's encoder output or image features) on the same
+    rows, each weight but ``wo`` gathered whole, ``wo`` split on d_model
+    as it is placed; the output, split on d_model as that product leaves
+    it, gathered to ``x``'s placement (XLA's placement of the reference's
+    attention, self and cross)."""
     names = list(p)
     xs = spec_of(x)
     ds = spec_of(p["wo"])[-1]
     specs = [(None,) * (p[n].dim() - 1) + (ds,) if n == "wo" else ()
              for n in names]
     keys = list(kw)
+    n0 = len(ctx) + len(keys)
     out = local_call(
-        lambda x, *a: fn(dict(zip(names, a[len(keys):])), x, cfg,
-                         **dict(kw, **dict(zip(keys, a[:len(keys)])))),
-        x, *kw.values(), *(p[n] for n in names),
-        in_specs=[xs] + [()] * len(keys) + specs,
+        lambda x, *a: fn(dict(zip(names, a[n0:])), x, *a[:len(ctx)], cfg,
+                         **dict(kw, **dict(zip(keys, a[len(ctx):n0])))),
+        x, *ctx, *kw.values(), *(p[n] for n in names),
+        in_specs=[xs] + [xs[:1]] * len(ctx) + [()] * len(keys) + specs,
         out_specs=[xs[:-1] + (ds,)])
     return reshard(out, xs)
 
@@ -746,12 +749,24 @@ def mla_prefill_paged(p, x, cfg, ckv_pages, krope_pages, page_table, pos,
 def cross_attn_forward(p, x, kv_feats, cfg, gated=False):
     """x: [B,S,D]; kv_feats: [B,T,kv_dim] (encoder output / patch
     embeddings). ``gated`` scales the output by ``tanh(gate)`` (in f32,
-    then cast)."""
+    then cast). Above ``BLOCKED_THRESHOLD`` queries it takes the
+    query-blocked loop, as self-attention does (one block's scores
+    live at a time). In a mesh it runs as self-attention does
+    (:func:`_whole_heads`): every head on every rank, ``kv_feats`` on
+    ``x``'s rows, the gate whole."""
+    if current_mesh() is not None:
+        return _whole_heads(cross_attn_forward, p, x, cfg, kv_feats,
+                            gated=gated)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     kv = kv_feats.to(x.dtype)
     k = torch.einsum("btd,dhk->bthk", kv, p["wk"])
     v = torch.einsum("btd,dhk->bthk", kv, p["wv"])
-    out = grouped_attention(q, k, v, mask=None, cap=cfg.attn_logit_softcap)
+    if x.shape[1] > BLOCKED_THRESHOLD:
+        out = blocked_attention(q, k, v, causal=False,
+                                cap=cfg.attn_logit_softcap)
+    else:
+        out = grouped_attention(q, k, v, mask=None,
+                                cap=cfg.attn_logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out

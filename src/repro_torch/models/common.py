@@ -25,7 +25,7 @@ from ..dist.sharding import reshard
 # ---------------------------------------------------------------------------
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 def dt(name: str) -> torch.dtype:

@@ -9,18 +9,26 @@ Recurrence (per head, state S in R^{K x P}):
     y_t = q_t . (S_t-1 + diag(u) k_t v_t^T)  (exclusive + bonus, rwkv6)
 
 Inside a chunk, with s = cumsum(log_w), key i reaches query j through
-exp(s_j - s_i), computed as one exponent on the causally masked [L, L]
-pairs. Every such exponent is <= 0, as are those of the cross-chunk term
-q_j exp(s_j) and the state tail exp(s_L - s_i), so nothing overflows and
-no clamp is needed: the result is the exact recurrence. (The reference
-splits the decay into exp(s_j) * exp(-s_i) with s clamped to +-20, which
-drops real contributions once a chunk's cumulative decay passes -20; where
-no clamp bites the two agree up to rounding.)
+exp(s_j - s_i). A chunk is cut into sub-chunks of up to ``SUB`` tokens:
+within one, the exponent is taken as it stands on the causally masked
+[l, l] pairs; from an earlier sub-chunk, it is split through that
+sub-chunk's last token e as exp(s_j - s_e) * exp(s_e - s_i). Every such
+exponent is <= 0, as are those of the cross-chunk term q_j exp(s_j) and
+the state tail exp(s_L - s_i), so nothing overflows and no clamp is
+needed: the result is the exact recurrence. (The reference splits the
+decay into exp(s_j) * exp(-s_i) with s clamped to +-20, which drops real
+contributions once a chunk's cumulative decay passes -20; where no clamp
+bites the two agree up to rounding.) No tensor holds two position axes of
+a whole chunk with K: the exact pairs are [B, n, l, l, H, K], and where a
+gradient is taken each chunk is recomputed in the backward pass, so that
+autograd keeps only a chunk's inputs and the state.
 
 Tensors keep the reference's layouts: q, k, log_w [B,T,H,K], v [B,T,H,P],
 state [B,H,K,P] in f32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,23 +39,52 @@ from ..dist.sharding import batch_axes, current_mesh, local_call
 _F32 = torch.float32
 
 
-def _chunk_step(state, qc, kc, vc, sc, sq, inclusive, u):
-    """One chunk. qc, kc: [B,L,H,K]; vc: [B,L,H,P]; sc: [B,L,H,K]
-    cumulative log-decay within the chunk (inclusive of step t); sq: the
-    q-side exponent (``sc`` for inclusive scans, the exclusive cumsum
-    ``sc - w`` for rwkv-style read-before-decay). All f32; state [B,H,K,P].
+# the span of the exact pairwise decay: a chunk's sub-chunk
+SUB = 16
+
+
+def _chunk_step(state, qc, kc, vc, wc, inclusive, u):
+    """One chunk. qc, kc, wc: [B,L,H,K] (wc the per-token log-decay); vc:
+    [B,L,H,P]; all f32; state [B,H,K,P]. ``inclusive``: y_t reads the
+    state after step t (mamba2), else before it (rwkv6, with the bonus
+    ``u``). The chunk is n sub-chunks of l = gcd(L, SUB) tokens. Key i
+    of sub-chunk a reaches query j of sub-chunk b through exp(s_j - s_i):
+    within a sub-chunk (a = b) as one exponent on the masked [l, l] pairs;
+    across (a < b) as exp(s_j - s_e) * exp(s_e - s_i) through the end e of
+    a, each factor <= 1, K contracted in the product to [l, l] blocks.
     Returns (new_state, y [B,L,H,P])."""
-    L = qc.shape[1]
-    i = torch.arange(L, device=qc.device)
+    B, L, H, K = qc.shape
+    P = vc.shape[-1]
+    sub = math.gcd(L, SUB)
+    n = L // sub
+    sc = torch.cumsum(wc, dim=1)             # inclusive of step t
+    sq = sc if inclusive else sc - wc        # the q-side exponent
+    q5, k5, v5, s5, sq5 = (t.reshape(B, n, sub, H, t.shape[-1])
+                           for t in (qc, kc, vc, sc, sq))
+    i = torch.arange(sub, device=qc.device)
     mask = ((i[:, None] >= i[None, :]) if inclusive
             else (i[:, None] > i[None, :]))
-    # exp(s_j^(q) - s_i) on the masked (query j, key i) pairs, <= 1 there;
-    # the other pairs get -inf, whose exp is 0
-    diff = sq[:, :, None] - sc[:, None, :]                   # [B,Lj,Li,H,K]
-    diff = diff.masked_fill(~mask[None, :, :, None, None], float("-inf"))
-    scores = (qc[:, :, None] * kc[:, None, :] * torch.exp(diff)).sum(-1)
-    y = torch.einsum("bjih,bihp->bjhp", scores, vc)
-    # cross-chunk: q_j exp(s_j) . S_prev
+    # exp(s_j^(q) - s_i) on the masked (query j, key i) pairs of a
+    # sub-chunk, <= 1 there; the other pairs get -inf, whose exp is 0
+    diff = sq5[:, :, :, None] - s5[:, :, None, :]           # [B,n,lj,li,H,K]
+    diff = diff.masked_fill(~mask[None, None, :, :, None, None],
+                            float("-inf"))
+    scores = (q5[:, :, :, None] * k5[:, :, None, :] * torch.exp(diff)).sum(-1)
+    y = torch.einsum("bnjih,bnihp->bnjhp", scores, v5)
+    if n > 1:
+        # earlier sub-chunks a < b: the pairs (b, a >= b) get -inf
+        se = s5[:, :, -1]                                    # [B,n,H,K]
+        a = torch.arange(n, device=qc.device)
+        qe = sq5[:, :, None] - se[:, None, :, None]          # [B,nb,na,l,H,K]
+        qe = qe.masked_fill(~(a[None, :] < a[:, None])[None, :, :, None, None,
+                                                          None],
+                            float("-inf"))
+        ke = k5 * torch.exp(se[:, :, None] - s5)             # [B,na,l,H,K]
+        blocks = torch.einsum("bxajhk,baihk->bxajih",
+                              q5[:, :, None] * torch.exp(qe), ke)
+        y = y + torch.einsum("bxajih,baihp->bxjhp", blocks, v5)
+    y = y.reshape(B, L, H, P)
+    # from the state: q_j exp(s_j) . S_prev
     y = y + torch.einsum("blhk,bhkp->blhp", qc * torch.exp(sq), state)
     if u is not None:  # rwkv bonus: diagonal term q_t.(u*k_t) v_t
         diag = torch.einsum("blhk,hk,blhk->blh", qc, u, kc)
@@ -60,14 +97,40 @@ def _chunk_step(state, qc, kc, vc, sc, sq, inclusive, u):
     return new_state, y
 
 
+class _Recomputed(torch.autograd.Function):
+    """:func:`_chunk_step` whose backward pass recomputes it from its
+    inputs, so that autograd keeps only those (a chunk's q, k, v,
+    log-decay and state), not the step's [B, n, l, l, H, K] pairs."""
+
+    @staticmethod
+    def forward(ctx, inclusive, u, state, qc, kc, vc, wc):
+        ctx.inclusive = inclusive
+        ctx.save_for_backward(u, state, qc, kc, vc, wc)
+        return _chunk_step(state, qc, kc, vc, wc, inclusive, u)
+
+    @staticmethod
+    def backward(ctx, g_state, g_y):
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            u, state, qc, kc, vc, wc = ins
+            out = _chunk_step(state, qc, kc, vc, wc, ctx.inclusive, u)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, n in zip(ins, need) if n], (g_state, g_y),
+            allow_unused=True))
+        return (None,) + tuple(next(grads) if n else None for n in need)
+
+
 def chunked_linear_attn(q, k, v, log_w, *, bonus=None, inclusive=True,
                         chunk=64, initial_state=None):
     """q, k, log_w: [B,T,H,K]; v: [B,T,H,P]. Returns (y [B,T,H,P] in q's
     dtype, S [B,H,K,P] f32). ``T`` must be a multiple of the chunk
-    (``min(chunk, T)``); the chunks run in a Python loop, each building its
-    own [B,L,L,H,K] decay. In a mesh each rank scans its own rows and
-    heads (rows over the batch axes, heads over "model", where they
-    divide): the scan is independent per row and head."""
+    (``min(chunk, T)``); the chunks run in a Python loop, and where a
+    gradient is taken each is recomputed in the backward pass. In a mesh
+    each rank scans its own rows and heads (rows over the batch axes,
+    heads over "model", where they divide): the scan is independent per
+    row and head."""
     mesh = current_mesh()
     if mesh is not None:
         B, H = q.shape[0], q.shape[2]
@@ -97,14 +160,15 @@ def _scan(q, k, v, log_w, bonus, initial_state, *, inclusive, chunk):
     state = (torch.zeros(B, H, K, P, dtype=_F32, device=q.device)
              if initial_state is None else initial_state.to(_F32))
     uf = None if bonus is None else bonus.to(_F32)
+    recompute = torch.is_grad_enabled() and any(
+        a is not None and a.requires_grad
+        for a in (qf, kf, vf, wf, state, uf))
     ys = []
     for c0 in range(0, T, L):
         sl = slice(c0, c0 + L)
-        wc = wf[:, sl]
-        sc = torch.cumsum(wc, dim=1)
-        sq = sc if inclusive else sc - wc                  # read-before-decay
-        state, y = _chunk_step(state, qf[:, sl], kf[:, sl], vf[:, sl], sc,
-                               sq, inclusive, uf)
+        ins = (state, qf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl])
+        state, y = (_Recomputed.apply(inclusive, uf, *ins) if recompute
+                    else _chunk_step(*ins, inclusive, uf))
         ys.append(y)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     return y.to(q.dtype), state
@@ -180,10 +244,19 @@ def _token_shift(x, last=None):
 def rwkv_time_mix(p, x, cfg, state=None, shift_last=None):
     """x: [B,T,D]; state: [B,H,K,K] or None. Returns (y, new_state,
     new_shift)."""
+    y, new_state, shift = time_mix_heads(p, x, cfg, state, shift_last)
+    return y @ p["tm_wo"], new_state, shift
+
+
+def time_mix_heads(p, x, cfg, state=None, shift_last=None):
+    """:func:`rwkv_time_mix` up to its output product: (the gated,
+    group-normed heads [B,T,H*K], new_state, new_shift). The heads are
+    those the weights hold: in a mesh, a rank's columns of ``tm_wr``,
+    ``tm_wk``, ``tm_wv``, ``tm_wg`` and the decay's ``b``, with their rows
+    of ``base``, ``bonus`` and ``ln_x`` (``x`` whole)."""
     B, T, D = x.shape
     s = cfg.ssm
     K = s.head_dim
-    H = D // K
     xx = _token_shift(x, shift_last)
     mix = p["tm_mix"]
     xr = x + (xx - x) * mix[0]
@@ -191,31 +264,41 @@ def rwkv_time_mix(p, x, cfg, state=None, shift_last=None):
     xv = x + (xx - x) * mix[2]
     xw = x + (xx - x) * mix[3]
     xg = x + (xx - x) * mix[4]
-    r = (xr @ p["tm_wr"]).reshape(B, T, H, K)
-    k = (xk @ p["tm_wk"]).reshape(B, T, H, K)
-    v = (xv @ p["tm_wv"]).reshape(B, T, H, K)
+    r = (xr @ p["tm_wr"]).reshape(B, T, -1, K)
+    k = (xk @ p["tm_wk"]).reshape(B, T, -1, K)
+    v = (xv @ p["tm_wv"]).reshape(B, T, -1, K)
     g = F.silu(xg @ p["tm_wg"])
     dw = p["decay_w"]
-    w_dd = (torch.tanh(xw @ dw["a"]) @ dw["b"]).reshape(B, T, H, K)
+    w_dd = (torch.tanh(xw @ dw["a"]) @ dw["b"]).reshape(B, T, -1, K)
     log_w = -torch.exp(torch.clamp(dw["base"][None, None] + w_dd.to(_F32),
                                    -8.0, 4.0))               # <= 0
     y, new_state = chunked_linear_attn(
         r, k, v, log_w, bonus=p["bonus"], inclusive=False,
         chunk=min(s.chunk, T), initial_state=state)
+    H = y.shape[2]
     yn = rms_norm(y.reshape(B * T * H, K),
                   torch.zeros((K,), dtype=y.dtype, device=y.device),
-                  cfg.norm_eps).reshape(B, T, D)
+                  cfg.norm_eps).reshape(B, T, H * K)
     yn = yn * (1.0 + p["ln_x"].to(_F32)).to(yn.dtype) * g
-    return yn @ p["tm_wo"], new_state, x[:, -1:]
+    return yn, new_state, x[:, -1:]
 
 
 def rwkv_channel_mix(p, x, cfg, shift_last=None):
+    kv, r, shift = channel_mix_parts(p, x, shift_last)
+    return torch.sigmoid(r) * kv, shift
+
+
+def channel_mix_parts(p, x, shift_last=None):
+    """:func:`rwkv_channel_mix`'s two products: (the value ``kv``, the
+    receptance before its sigmoid, new_shift). In a mesh, a rank's
+    columns of ``cm_wk`` with its rows of ``cm_wv`` give one part of
+    ``kv``, its columns of ``cm_wr`` its columns of the receptance."""
     xx = _token_shift(x, shift_last)
     mix = p["cm_mix"]
     xk = x + (xx - x) * mix[0]
     xr = x + (xx - x) * mix[1]
     k = sq_relu(xk @ p["cm_wk"])
-    return torch.sigmoid(xr @ p["cm_wr"]) * (k @ p["cm_wv"]), x[:, -1:]
+    return k @ p["cm_wv"], xr @ p["cm_wr"], x[:, -1:]
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ from . import ssm as ssmm
 from .common import dt, embed_init, dense_init, rms_norm, softcap
 from ..configs.base import ModelConfig
 from ..dist.sharding import (Reduced, axes_of, current_mesh, hint,
-                             local_call, spec_of, take_rows)
+                             local_call, reshard, spec_of, take_rows)
 from ..train.tree import leaves, unflatten
 
 # a layer kind ending with this also fires the hybrid's shared block
@@ -298,7 +298,7 @@ def _whisper_cross(cp, x, cfg, ctx):
     cp = cast_tree(cp, cfg)
     h = rms_norm(x, cp["ln"], cfg.norm_eps)
     a = attn.cross_attn_forward(
-        {k: cp[k] for k in ("wq", "wk", "wv", "wo", "gate")}, h,
+        {k: cp[k] for k in ("wq", "wk", "wv", "wo")}, h,
         ctx["enc_out"], cfg, gated=False)
     return x + a
 
@@ -313,35 +313,93 @@ def _store(cache, new):
 
 
 def _on_local(fn, p, x, cache):
-    """``fn(p, x)`` for a layer with no sharding rule of its own (the SSM
-    layers): in a mesh, without a cache, on each rank's rows of ``x`` with
-    every weight gathered whole (no head split: the scan runs every head
-    on every rank); else ``fn(p, x, cache)``."""
-    if current_mesh() is None or cache is not None:
+    """``fn(p, x, cache)`` for a layer with no sharding rule of its own
+    (mamba2): in a mesh, on each rank's rows of ``x`` (a cache's rows in
+    a decode step) with every weight gathered whole (no head split: the
+    scan runs every head on every rank), a cache's leaves gathered whole
+    but for their rows for the step and written back in their own
+    placement; else ``fn(p, x, cache)``."""
+    if current_mesh() is None:
         return fn(p, x, cache)
+    x0s = spec_of(x)
+    names = list(cache or {})
+    if names:
+        x = reshard(x, spec_of(cache[names[0]])[:1] + x0s[1:])
     xs = spec_of(x)
+    cs = [xs[:1] + (None,) * (cache[n].dim() - 1) for n in names]
     w = leaves(p)
-    return local_call(lambda x, *w: fn(unflatten(p, w), x, None), x, *w,
-                      in_specs=[xs] + [()] * len(w), out_specs=[xs])
+
+    def run(x, *a):
+        c = dict(zip(names, a[:len(names)])) or None
+        y = fn(unflatten(p, a[len(names):]), x, c)
+        return (y, *(c[n] for n in names))     # the state, written by fn
+
+    y, *new = local_call(run, x, *(cache[n] for n in names), *w,
+                         in_specs=[xs] + cs + [()] * len(w),
+                         out_specs=[xs] + cs)
+    _store(cache, {n: reshard(t, spec_of(cache[n]))
+                   for n, t in zip(names, new)})
+    return reshard(y, x0s)
 
 
 def _rwkv_layer(p, x, cfg, cache=None):
-    return _on_local(lambda p, x, c: _rwkv(p, x, cfg, c), p, x, cache)
-
-
-def _rwkv(p, x, cfg, cache):
+    """The rwkv6 layer (time mix, channel mix, their norms and residuals;
+    a cache's state and token shifts advanced in place). In a mesh, where
+    XLA's compiled program places the reference's: each rank on its rows
+    of ``x`` (a cache's rows in a decode step), its heads split over
+    "model" (where they divide). Every product takes its input whole on
+    d_model and gives its output split with the heads (r, k, v, g and the
+    decay's LoRA out, the time mix's ``tm_wo`` after its input is
+    gathered, the channel mix's key and receptance); the scan, the group
+    norm and the gate run on each rank's heads; the channel mix's value
+    product, split on its input as placed, sums its partial products (an
+    all-reduce). The weights move to those placements, the activations
+    are gathered back to ``x``'s. A cache's state stays where it is
+    placed (rows, heads), its token shifts are gathered whole for the
+    step and written back in their own placement. Without a mesh every
+    placement is the identity."""
     rp = p["rwkv"]
-    st, tm_last, cm_last = ((cache["state"], cache["tm_shift"],
-                             cache["cm_shift"]) if cache is not None
-                            else (None, None, None))
+    H = cfg.d_model // cfg.ssm.head_dim
+    mesh = current_mesh()
+    m = ("model" if mesh is not None and "model" in mesh.axis_names
+         and H % mesh.shape["model"] == 0 else None)
+    x0s = spec_of(x)
+    if cache is not None:
+        x = reshard(x, spec_of(cache["state"])[:1] + x0s[1:])
+    xs = spec_of(x)
+    heads, state = xs[:-1] + (m,), xs[:1] + (m, None, None)
+    col, row = (None, m), (m, None)
+    c = cache or {}
+    dw = rp["decay_w"]
+    names = ("tm_mix", "tm_wr", "tm_wk", "tm_wv", "tm_wg", "bonus", "ln_x")
+
+    def time_mix(h, st, last, a, b, base, *w):
+        q = dict(zip(names, w), decay_w={"a": a, "b": b, "base": base})
+        return ssmm.time_mix_heads(q, h, cfg, st, last)
+
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, new_state, tm_shift = ssmm.rwkv_time_mix(rp, h, cfg, st, tm_last)
-    x = x + y
+    y, new_state, tm_shift = local_call(
+        time_mix, h, c.get("state"), c.get("tm_shift"), dw["a"], dw["b"],
+        dw["base"], *(rp[n] for n in names),
+        in_specs=[xs, state, xs, (), col, row, (), col, col, col, col, row,
+                  (m,)], out_specs=[heads, state, xs])
+    y = local_call(lambda y, w: y @ w, reshard(y, xs), rp["tm_wo"],
+                   in_specs=[xs, col], out_specs=[heads])
+    x = x + reshard(y, xs)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y2, cm_shift = ssmm.rwkv_channel_mix(rp, h2, cfg, cm_last)
-    _store(cache, {"state": new_state, "tm_shift": tm_shift,
-                   "cm_shift": cm_shift})
-    return x + y2
+    kv, r, cm_shift = local_call(
+        lambda h, last, mix, wk, wv, wr: ssmm.channel_mix_parts(
+            {"cm_mix": mix, "cm_wk": wk, "cm_wv": wv, "cm_wr": wr}, h, last),
+        h2, c.get("cm_shift"), rp["cm_mix"], rp["cm_wk"], rp["cm_wv"],
+        rp["cm_wr"], in_specs=[xs, xs, (), col, row, col],
+        out_specs=[Reduced(xs, axes_of(m)) if m else xs, heads, xs])
+    if cache is not None:
+        _store(cache, {"state": new_state,
+                       "tm_shift": reshard(tm_shift,
+                                           spec_of(cache["tm_shift"])),
+                       "cm_shift": reshard(cm_shift,
+                                           spec_of(cache["cm_shift"]))})
+    return reshard(x + torch.sigmoid(reshard(r, xs)) * kv, x0s)
 
 
 def _mamba_layer(p, x, cfg, cache=None):
@@ -502,6 +560,9 @@ def _embed_tokens(params, cfg, tokens, positions=None):
         pos = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
                if positions is None else positions).long()
         table = params["pos_embed"]
+        # in a mesh: on x's rows (whole where it broadcasts over them)
+        pos = reshard(pos, spec_of(x)[:1] if pos.shape[0] == x.shape[0]
+                      else ())
         # a position past the table (an engine's sentinel row) reads NaN,
         # as the reference's ``jnp.take`` fills it; it never indexes out
         inside = (pos >= 0) & (pos < table.shape[0])
@@ -527,9 +588,13 @@ def _logits(params, cfg, x):
 
 def _run_encoder(params, cfg, frames):
     """whisper's encoder: learned frame positions, non-causal layers,
-    ``ln_post``."""
+    ``ln_post``. In a mesh, each rank's rows of ``frames`` as they are
+    placed, the positions gathered whole."""
     ep = params["encoder"]
-    x = frames.to(dt(cfg.activation_dtype)) + ep["pos"][None].to(frames.dtype)
+    act = dt(cfg.activation_dtype)
+    fs = spec_of(frames)
+    x = local_call(lambda f, pos: f.to(act) + pos[None].to(f.dtype),
+                   frames, ep["pos"], in_specs=[fs, ()], out_specs=[fs])
     for i in range(cfg.encoder.num_layers if "layers" in ep else 0):
         x, _ = _attn_layer(cast_tree(_at(ep["layers"], i), cfg), x, cfg,
                            "global", {"causal": False})
@@ -614,8 +679,14 @@ def loss_fn(params, cfg: ModelConfig, batch):
     if _vocab_sharded(lf):
         lse, gold = _sharded_nll_terms(lf, labels)
     else:
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = lf.gather(-1, labels[..., None])[..., 0]
+        # in a mesh: each rank's rows, the vocabulary whole (whisper's,
+        # which "model" does not divide)
+        rows = spec_of(lf)[:-1]
+        lse, gold = local_call(
+            lambda l, lab: (torch.logsumexp(l, dim=-1),
+                            l.gather(-1, lab[..., None])[..., 0]),
+            lf, labels, in_specs=[rows + (None,), rows],
+            out_specs=[rows, rows])
     nll = torch.mean(lse - gold)
     loss = nll
     metrics = {"nll": nll}
@@ -705,6 +776,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, ctx_extra=None,
     pos = torch.as_tensor(pos, device=token.device)
     positions = pos.reshape(-1).expand(B)[:, None]
     x = _embed_tokens(params, cfg, token, positions=positions)
+    # in a mesh: the token's rows as placed, d_model whole (an embedding
+    # split on d_model, whisper's, is gathered, as XLA does)
+    x = reshard(x, spec_of(x)[:-1] + (None,))
     ctx = {"positions": positions}
     if use_flash:
         ctx["use_flash"] = True

@@ -11,23 +11,34 @@ step. From XLA's own live ranges (the dump's ``HloLiveRange``), the
 largest sum of temp buffers live at one point of the step is
 ``live_peak`` (``temp_bytes`` is the allocation, that plus
 fragmentation), and ``live_peak_less_cpu_copies`` the same without
-those copies.
+those copies. ``live_peak_less_f32_converts`` also leaves out every f32
+value a convert makes (inside the loop XLA's CPU backend slices each
+layer's weights out of the f32 copy and converts them again for its
+dot, a copy no eager step makes), and with them the f32 values its
+program computes by a convert fusion.
 
 Usage:
     python tests/_dryrun_reference.py ARCH SHAPE single|multi   # one cell
     python tests/_dryrun_reference.py --pins tests/torch_dryrun_pins.json
         # the reference's values for the pins' full-width cells
+    python tests/_dryrun_reference.py --grid tests/torch_dryrun_grid.json \
+        [--jobs N]    # the reference's values for every run of the grid
 """
 import glob
 import json
 import os
 import re
+import subprocess
 import sys
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 # the full-width cells whose reference values the pins keep
 PIN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
-             ("deepseek-v2-236b", "decode_32k", "multi"))
+             ("deepseek-v2-236b", "decode_32k", "multi"),
+             ("llama-3.2-vision-90b", "decode_32k", "multi"),
+             ("rwkv6-7b", "train_4k", "single"))
 
 
 def temp_buffers(dump: str) -> dict:
@@ -64,11 +75,11 @@ def temp_buffers(dump: str) -> dict:
         vals.append({"name": name, "bytes": int(m.group(2)),
                      "shape": m.group(3), "range": r, "cpu_copy": copy})
 
-    def peak(skip_copies):
+    def peak(skip):
         end = max((v["range"][1] for v in vals if v["range"]), default=0)
         delta = [0] * (end + 2)
         for v in vals:
-            if v["range"] and not (skip_copies and v["cpu_copy"]):
+            if v["range"] and not skip(v):
                 delta[v["range"][0]] += v["bytes"]
                 delta[v["range"][1] + 1] -= v["bytes"]
         best = cur = 0
@@ -80,7 +91,11 @@ def temp_buffers(dump: str) -> dict:
     return {"temp": int(re.search(r"size (\d+)", alloc).group(1)),
             "values": vals,
             "cpu_copies": sum(v["bytes"] for v in vals if v["cpu_copy"]),
-            "live_peak": peak(False), "live_peak_less_cpu_copies": peak(True)}
+            "live_peak": peak(lambda v: False),
+            "live_peak_less_cpu_copies": peak(lambda v: v["cpu_copy"]),
+            "live_peak_less_f32_converts": peak(
+                lambda v: v["cpu_copy"] or (v["shape"].startswith("f32[")
+                                            and "convert" in v["name"]))}
 
 
 def compile_cell(arch, shape, mesh_kind, dump):
@@ -119,32 +134,53 @@ def _record(mem, bufs):
             "live_peak": bufs["live_peak"],
             "cpu_copies_bytes": bufs["cpu_copies"],
             "live_peak_less_cpu_copies": bufs["live_peak_less_cpu_copies"],
+            "live_peak_less_f32_converts": bufs["live_peak_less_f32_converts"],
             "largest": [f"{v['shape']} {v['name']} {v['bytes']}"
                         + (" cpu_copy" if v["cpu_copy"] else "")
                         for v in top[:8]]}
 
 
+def _compile_run(run) -> tuple:
+    """("<mesh>/<arch>/<shape>", :func:`_record` of one run compiled in a
+    process of its own (XLA reads its flags once), or ``{"error": ...}``)."""
+    arch, shape, mesh = run
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), arch, shape, mesh],
+        capture_output=True, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    key = f"{mesh}/{arch}/{shape}"
+    rec = (json.loads(proc.stdout.strip().splitlines()[-1])
+           if proc.returncode == 0 else {"error": proc.stderr[-400:]})
+    print(f"{key}: {'error' if 'error' in rec else 'ok'}", file=sys.stderr,
+          flush=True)
+    return key, rec
+
+
+def compile_all(runs, jobs=1) -> dict:
+    """:func:`_record` of each (arch, shape, mesh) of ``runs``, ``jobs``
+    compiled at once, by "<mesh>/<arch>/<shape>"; a run that fails to
+    compile is ``{"error": ...}``."""
+    with ThreadPoolExecutor(jobs) as ex:
+        return dict(sorted(ex.map(_compile_run, runs)))
+
+
 def main(argv):
-    if argv[0] == "--pins":
+    if argv[0] in ("--pins", "--grid"):
         path = argv[1]
+        jobs = int(argv[argv.index("--jobs") + 1]) if "--jobs" in argv else 1
         with open(path) as f:
-            pins = json.load(f)
-        ref = {}
-        for arch, shape, mesh in PIN_CELLS:
-            with tempfile.TemporaryDirectory() as d:
-                # one process a cell: XLA reads its flags once
-                out = os.path.join(d, "cell.json")
-                cmd = (f"{sys.executable} {os.path.abspath(__file__)} "
-                       f"{arch} {shape} {mesh} > {out}")
-                if os.system(cmd) != 0:
-                    raise RuntimeError(cmd)
-                with open(out) as f:
-                    ref[f"{mesh}/{arch}/{shape}"] = json.load(f)
-        pins["reference"] = {
-            "command": "python tests/_dryrun_reference.py --pins " + path,
-            "jax": __import__("jax").__version__, "cells": ref}
+            tree = json.load(f)
+        runs = (PIN_CELLS if argv[0] == "--pins" else
+                [tuple(k.split("/")[1:]) + (k.split("/")[0],)
+                 for k in tree["cells"]])
+        t0 = time.time()
+        ref = compile_all(runs, jobs)
+        tree["reference"] = {
+            "command": "python tests/_dryrun_reference.py " + " ".join(argv),
+            "jax": __import__("jax").__version__,
+            "wall_s": round(time.time() - t0, 1), "cells": ref}
         with open(path, "w") as f:
-            json.dump(pins, f, indent=1)
+            json.dump(tree, f, indent=1)
             f.write("\n")
         return
     arch, shape, mesh = argv

@@ -10,7 +10,14 @@ decode step's logits and the written cache, from a cache of seeded noise
 placed by the dry run's rules (the prefix layer's cache one dim off, as
 the reference's rule places it). The decode step also runs on a
 (data=1, model=4) mesh, where qwen3's 2 KV heads do not divide "model"
-and its cache is split on the sequence instead.
+and its cache is split on the sequence instead. whisper's frames and
+encoder output and the VLM's image features are seeded noise on the
+tokens' rows; the VLM's cross gates are opened to 0.5 (zeros at init
+hide its cross layers). Those two run in f64: their smoke stacks
+amplify rounding (one device's own f32 step sits 1.5e-3 (logits) and
+1.4e-2 (gradients) from its f64 step on the VLM, 1.7e-4 and 6.1e-4 on
+whisper, relative to each tensor's largest value), so in f32 the ranks'
+other summation order alone would move them past ``TOL``.
 """
 import pickle
 import sys
@@ -19,37 +26,46 @@ MESH = (2, 2)
 SEQ_MESH = (1, 4)             # the decode's cache split on the sequence
 B, S, SEED = 4, 16, 3
 ARCHS = {"qwen3-1.7b": True, "deepseek-v2-236b": True,
-         "zamba2-1.2b": False}                     # arch: decode on the mesh
+         "zamba2-1.2b": True, "whisper-small": True,
+         "llama-3.2-vision-90b": True, "rwkv6-7b": True}  # arch: decode
+F64 = ("whisper-small", "llama-3.2-vision-90b")
 
 
 def _whole(t):
     return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
 
 
-def _steps(cfg, params, tokens, labels, cache, decode, train=True):
+def _steps(cfg, params, tokens, labels, cache, decode, ctx, train=True):
     """(logits, loss, grads, decode logits, cache after) of one config on
-    whatever placements its inputs have."""
+    whatever placements its inputs have; ``ctx`` holds the context
+    tensors (``frames``, ``enc_out``, ``vision``)."""
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.train.tree import leaves
     out = {}
     if train:
-        out = _train_steps(cfg, params, tokens, labels)
+        out = _train_steps(cfg, params, tokens, labels,
+                           {k: v for k, v in ctx.items() if k != "enc_out"})
     if decode:
+        extra = {k: v for k, v in ctx.items() if k != "frames"}
         with torch.no_grad():
-            dl, c = tf.decode_step(params, cfg, tokens[:, :1], cache, S - 1)
+            dl, c = tf.decode_step(params, cfg, tokens[:, :1], cache, S - 1,
+                                   ctx_extra=extra or None)
         out["decode"] = _whole(dl).numpy()
         out["cache"] = [_whole(x).numpy() for x in leaves(c)]
     return out
 
 
-def _train_steps(cfg, params, tokens, labels):
+def _train_steps(cfg, params, tokens, labels, ctx):
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.train.tree import leaves
-    logits, _ = tf.forward(params, cfg, {"tokens": tokens})
-    loss, _ = tf.loss_fn(params, cfg, {"tokens": tokens, "labels": labels})
-    grads = torch.autograd.grad(loss, leaves(params))
+    logits, _ = tf.forward(params, cfg, dict(ctx, tokens=tokens))
+    loss, _ = tf.loss_fn(params, cfg, dict(ctx, tokens=tokens,
+                                           labels=labels))
+    # whisper's cross gate takes no part (its cross layers are ungated)
+    grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
+                                materialize_grads=True)
     return {"logits": _whole(logits).numpy(), "loss": float(_whole(loss)),
             "grads": [_whole(g).numpy() for g in grads]}
 
@@ -62,15 +78,20 @@ def rank_main(rank):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.specs import batch_pspec, cache_pspecs
     from repro_torch.models import transformer as tf
-    from repro_torch.train.tree import leaves, unflatten
+    from repro_torch.train.tree import leaves, leaves_with_paths, unflatten
     torch.manual_seed(SEED)
     meshes = {"2x2": make_mesh(MESH, ("data", "model")),
               "1x4": make_mesh(SEQ_MESH, ("data", "model"))}
     res = {}
     for arch, decode in ARCHS.items():
-        cfg = smoke_config(arch).replace(param_dtype="float32",
-                                         activation_dtype="float32")
+        fl = "float64" if arch in F64 else "float32"
+        cfg = smoke_config(arch).replace(param_dtype=fl,
+                                         activation_dtype=fl)
         params = tf.init_params(cfg, SEED, "cpu")
+        if cfg.vision:
+            params = unflatten(params, [
+                torch.full_like(x, 0.5) if path[-1] == "gate" else x
+                for path, x in leaves_with_paths(params)])
         for p in leaves(params):
             p.requires_grad_(True)
         g = torch.Generator().manual_seed(SEED)
@@ -81,9 +102,18 @@ def rank_main(rank):
             cache = unflatten(cache, [torch.randn(x.shape, generator=g)
                                       .to(x.dtype) for x in leaves(cache)])
         labels = tokens.roll(-1, 1)
+        ctx = {}
+        if cfg.encoder:
+            for k in ("frames", "enc_out"):
+                ctx[k] = torch.randn(B, cfg.encoder.num_frames, cfg.d_model,
+                                     generator=g).to(tf.dt(fl))
+        if cfg.vision:
+            ctx["vision"] = torch.randn(B, cfg.vision.num_tokens,
+                                        cfg.vision.vision_dim,
+                                        generator=g).to(tf.dt(fl))
         want = _steps(cfg, params, tokens, labels,
                       unflatten(cache, [x.clone() for x in leaves(cache)])
-                      if decode else None, decode)
+                      if decode else None, decode, ctx)
         got = {}
         for name, mesh in meshes.items():
             if name != "2x2" and not decode:
@@ -96,7 +126,8 @@ def rank_main(rank):
                 tok, lab = distribute(tokens, rows), distribute(labels, rows)
                 sc = (distribute(cache, cache_pspecs(cache, mesh))
                       if decode else None)
-                got[name] = _steps(cfg, sp, tok, lab, sc, decode,
+                sctx = {k: distribute(v, rows) for k, v in ctx.items()}
+                got[name] = _steps(cfg, sp, tok, lab, sc, decode, sctx,
                                    train=name == "2x2")
         res[arch] = {"got": got, "want": want if rank == 0 else None}
     return res

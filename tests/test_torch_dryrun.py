@@ -1,16 +1,20 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on small fake meshes:
-the twin of ``tests/test_dryrun_small.py``. The six smoke cells (qwen3
-train, deepseek-v2 decode, zamba2 prefill on (data=2, model=4) and
-(pod=2, data=2, model=2)) are traced in one subprocess, each on a fake
-process group of 8 ranks: FLOPs above 0, the multi-pod cells
-communicate, and their per-device argument bytes equal those of the
-reference's compiled cells (a second subprocess, 8 fake XLA devices,
-whose temp buffers are read from XLA's dump). Each cell's temp is held
-to the reference's, its collectives, FLOPs and temp to
+the twin of ``tests/test_dryrun_small.py``. The smoke cells
+(``SMOKE_CELLS``: qwen3 train, deepseek-v2 decode, zamba2 prefill,
+whisper and llama-3.2-vision train and decode, rwkv6 train, on
+(data=2, model=4) and (pod=2, data=2, model=2)) are traced in one
+subprocess a mesh, each on a fake process group of 8 ranks: FLOPs above
+0, the multi-pod cells communicate, and their per-device argument bytes
+equal those of the reference's compiled cells (a subprocess a mesh, 8
+fake XLA devices, whose temp buffers are read from XLA's dump via
+``tests/_dryrun_reference.py``). Each cell's temp is held to the
+reference's, its collectives, FLOPs and temp to
 ``tests/torch_dryrun_pins.json``, and the qwen3 cells' logits are never
 gathered whole. The pins' full-width cells give the reference's
-fits-in-80-GB verdicts.
-The same subprocess traces two cells at 0 to 3 periods: the
+fits-in-80-GB verdicts less XLA's CPU copies, and so does every run of
+the reference's whole grid recorded in ``tests/torch_dryrun_grid.json``,
+or the run is named in ``ROADMAP.md``'s queue 3.
+The single-mesh subprocess also traces two cells at 0 to 3 periods: the
 port has no scan, so FLOPs are exactly linear in the periods (the
 reference needs probes and a scaling rule for that). At full width,
 qwen3-1.7b ``decode_32k`` placed on the 16x16 mesh has the per-device
@@ -27,33 +31,38 @@ import numpy as np
 import pytest
 from jax.sharding import AbstractMesh
 
+from repro_torch.launch.dryrun import (PIN_CELLS, SMOKE_MESHES, fits,
+                                       grid_runs)
+
 SCRIPT = r"""
-import json
+import json, os
 from repro_torch.configs import smoke_config
 from repro_torch.launch.dryrun import (SMOKE_CELLS, summary, trace_cell,
                                        trace_smoke, tune_config)
 from repro_torch.launch.mesh import fake_group, make_mesh
 
+mesh_name = os.environ["SMOKE_MESH"]
 out = {}
-for k, m in trace_smoke().items():
+for k, m in trace_smoke((mesh_name,)).items():
     out[k] = dict(summary(m), colls=sum(m["collectives"]["counts"].values()),
                   wire=m["collectives"]["total_wire_bytes"],
                   memory=m["memory"], shapes=m["collectives"]["shapes"])
-with fake_group(8):
-    mesh = make_mesh((2, 4), ("data", "model"))
-    for arch, shape in (SMOKE_CELLS[0], SMOKE_CELLS[2]):
-        base = smoke_config(arch)
-        for n in (0, 1, 2, 3):
-            cfg = tune_config(base.with_layers(n * base.probe_period),
-                              shape.kind)
-            m = trace_cell(cfg, shape, mesh, shape.kind)
-            out[f"periods/{arch}/{n}"] = m["flops"]
+if mesh_name == "single":
+    with fake_group(8):
+        mesh = make_mesh((2, 4), ("data", "model"))
+        for arch, shape in (SMOKE_CELLS[0], SMOKE_CELLS[2]):
+            base = smoke_config(arch)
+            for n in (0, 1, 2, 3):
+                cfg = tune_config(base.with_layers(n * base.probe_period),
+                                  shape.kind)
+                m = trace_cell(cfg, shape, mesh, shape.kind)
+                out[f"periods/{arch}/{n}"] = m["flops"]
 print(json.dumps(out))
 """
 
 
-# the reference's compiled twin of SCRIPT's six cells, on 8 fake XLA
-# devices, each step's temp buffers read from XLA's dump
+# the reference's compiled twin of SCRIPT's cells on one mesh, on 8 fake
+# XLA devices, each step's temp buffers read from XLA's dump
 # (``tests/_dryrun_reference.py``)
 REF_SCRIPT = r"""
 import os, shutil, sys, tempfile
@@ -71,60 +80,74 @@ from repro.launch.mesh import make_mesh
 sys.path.insert(0, os.environ["TESTS_DIR"])
 from _dryrun_reference import temp_buffers
 
+mesh_name, dims, axes, cells = json.loads(os.environ["SMOKE_REF"])
+mesh = make_mesh(tuple(dims), tuple(axes))
 out = {}
-for mesh_name, dims, axes in [("single", (2, 4), ("data", "model")),
-                              ("multi", (2, 2, 2), ("pod", "data", "model"))]:
-    mesh = make_mesh(dims, axes)
-    for arch, shape in [("qwen3-1.7b", ShapeConfig("t", 64, 8, "train")),
-                        ("deepseek-v2-236b", ShapeConfig("d", 64, 8, "decode")),
-                        ("zamba2-1.2b", ShapeConfig("p", 64, 8, "prefill"))]:
-        cfg = tune_config(smoke_config(arch), shape.kind)
-        before = set(os.listdir(dump))
-        m = compiled_metrics(lower_cell(cfg, shape, mesh, shape.kind), 8)
-        cell = os.path.join(dump, "cell")
-        os.makedirs(cell)
-        for f in set(os.listdir(dump)) - before - {"cell"}:
-            shutil.move(os.path.join(dump, f), cell)
-        b = temp_buffers(cell)
-        shutil.rmtree(cell)
-        out[f"{mesh_name}/{arch}/{shape.kind}"] = dict(
-            m["memory"], live_peak=b["live_peak"],
-            cpu_copies=b["cpu_copies"],
-            live_peak_less_cpu_copies=b["live_peak_less_cpu_copies"])
+for arch, kind in cells:
+    shape = ShapeConfig(kind[0], 64, 8, kind)
+    cfg = tune_config(smoke_config(arch), shape.kind)
+    before = set(os.listdir(dump))
+    m = compiled_metrics(lower_cell(cfg, shape, mesh, shape.kind), 8)
+    cell = os.path.join(dump, "cell")
+    os.makedirs(cell)
+    for f in set(os.listdir(dump)) - before - {"cell"}:
+        shutil.move(os.path.join(dump, f), cell)
+    b = temp_buffers(cell)
+    shutil.rmtree(cell)
+    out[f"{mesh_name}/{arch}/{shape.kind}"] = dict(
+        m["memory"], live_peak=b["live_peak"], cpu_copies=b["cpu_copies"],
+        live_peak_less_cpu_copies=b["live_peak_less_cpu_copies"],
+        live_peak_less_f32_converts=b["live_peak_less_f32_converts"])
 shutil.rmtree(dump)
 print(json.dumps(out))
 """
 
-PINS = os.path.join(os.path.dirname(__file__), "torch_dryrun_pins.json")
-SMOKE = ["single/qwen3-1.7b/train", "single/deepseek-v2-236b/decode",
-         "single/zamba2-1.2b/prefill", "multi/qwen3-1.7b/train",
-         "multi/deepseek-v2-236b/decode", "multi/zamba2-1.2b/prefill"]
+HERE = os.path.dirname(os.path.abspath(__file__))
+PINS = os.path.join(HERE, "torch_dryrun_pins.json")
+GRID = os.path.join(HERE, "torch_dryrun_grid.json")
+# the smoke cells on each mesh (the port's ``SMOKE_CELLS`` must trace
+# these); the first three were pinned before the cross-attention and rwkv6
+# placements came, the rest with them
+_FIRST = ["qwen3-1.7b/train", "deepseek-v2-236b/decode",
+          "zamba2-1.2b/prefill"]
+_LATER = ["whisper-small/train", "whisper-small/decode",
+          "llama-3.2-vision-90b/train", "llama-3.2-vision-90b/decode",
+          "rwkv6-7b/train"]
+SMOKE = [f"{mesh}/{cell}" for mesh in ("single", "multi")
+         for cell in _FIRST + _LATER]
+FIRST = {f"{mesh}/{cell}" for mesh in ("single", "multi") for cell in _FIRST}
 
 
 @pytest.fixture(scope="module")
 def traced():
-    """The port's SCRIPT and the reference's REF_SCRIPT, side by side in
-    two subprocesses; returns the port's dict with the reference's
-    memory records under "ref"."""
-    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    """The port's SCRIPT and the reference's REF_SCRIPT on each smoke
+    mesh, four subprocesses side by side; returns the port's dict with
+    the reference's memory records under "ref"."""
+    src = os.path.join(HERE, "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="2", JAX_PLATFORMS="cpu",
-               PYTHONPATH=src, TESTS_DIR=os.path.dirname(
-                   os.path.abspath(__file__)))
-    procs = [subprocess.Popen([sys.executable, "-c", code], env=env,
+               PYTHONPATH=src, TESTS_DIR=HERE)
+    cells = [cell.split("/") for cell in _FIRST + _LATER]
+    envs = []
+    for name, (dims, axes) in SMOKE_MESHES.items():
+        envs += [(SCRIPT, dict(env, SMOKE_MESH=name)),
+                 (REF_SCRIPT, dict(env, SMOKE_REF=json.dumps(
+                     [name, dims, axes, cells])))]
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=e,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for code in (SCRIPT, REF_SCRIPT)]
-    outs = []
-    for p in procs:
+                              text=True) for code, e in envs]
+    port, ref = {}, {}
+    for (code, _), p in zip(envs, procs):
         stdout, stderr = p.communicate(timeout=900)
         assert p.returncode == 0, stderr[-3000:]
-        outs.append(json.loads(stdout.strip().splitlines()[-1]))
-    return dict(outs[0], ref=outs[1])
+        (port if code is SCRIPT else ref).update(
+            json.loads(stdout.strip().splitlines()[-1]))
+    return dict(port, ref=ref)
 
 
 def test_small_mesh_dryrun_all_modes(traced):
     cells = {k: v for k, v in traced.items()
              if not k.startswith(("periods", "ref"))}
-    assert len(cells) == 6
+    assert sorted(cells) == sorted(SMOKE)
     for k, v in cells.items():
         assert v["flops"] > 0, k
         mem = v["memory"]
@@ -152,11 +175,13 @@ def test_traced_flops_linear_in_periods(traced, arch, first):
 
 
 def test_argument_bytes_equal_reference_compiled(traced):
-    """Each of the six cells' per-device argument bytes equal those of
-    the reference's compiled executable (XLA's memory analysis) on the
-    same fake mesh: the same specs place the same shards."""
+    """Each smoke cell's per-device argument bytes equal those of the
+    reference's compiled executable (XLA's memory analysis) on the same
+    fake mesh: the same specs place the same shards, and an argument the
+    step never reads (whisper's encoder weights in a decode step given
+    the encoder output) counts on neither side."""
     ref = traced["ref"]
-    assert len(ref) == 6
+    assert sorted(ref) == sorted(SMOKE)
     for k, mem in ref.items():
         assert traced[k]["memory"]["argument_bytes"] == \
             mem["argument_bytes"], k
@@ -227,16 +252,41 @@ def test_full_width_decode_argument_bytes_match_reference_specs():
 BANDS = {"train": (0.8, 1.25), "decode": (0.4, 1.25), "prefill": (0.6, 1.6)}
 
 
+# the cells that came with the cross-attention and rwkv6 placements,
+# held to XLA's own live ranges: "<arch>/<kind>" -> the reference's value
+# that the port's temp is divided by, and the band (about 0.8x the lowest
+# and 1.25x the highest ratio measured on the two smoke meshes). Train:
+# the live peak (the allocation less its fragmentation), 0.80-1.07
+# measured. whisper's decode: the live peak less the hoisted copies, as
+# deepseek-v2's (0.34 on (2, 2, 2), 0.54 on (2, 4)). The VLM's decode:
+# XLA's CPU backend also slices each layer's bf16 weights out of the f32
+# copy of the stack and converts them again for its dots (696 of the 772
+# KB live less the hoisted copies on (2, 4)), a copy no eager step makes,
+# so the live peak less every f32 value a convert makes (0.68 on (2, 2,
+# 2), 0.76 on (2, 4))
+LIVE_BANDS = {
+    "whisper-small/train": ("live_peak", 0.75, 1.25),
+    "llama-3.2-vision-90b/train": ("live_peak", 0.75, 1.25),
+    "rwkv6-7b/train": ("live_peak", 0.75, 1.25),
+    "whisper-small/decode": ("live_peak_less_cpu_copies", 0.27, 0.68),
+    "llama-3.2-vision-90b/decode": ("live_peak_less_f32_converts", 0.55,
+                                    0.95)}
+
+
 @pytest.mark.parametrize("cell", SMOKE)
 def test_temp_held_to_reference(traced, cell):
     got = traced[cell]["memory"]["temp_bytes"]
     ref = traced["ref"][cell]
     kind = cell.rsplit("/", 1)[1]
+    assert ref["live_peak"] <= ref["temp_bytes"]
+    if cell not in FIRST:
+        key, lo, hi = LIVE_BANDS[cell.split("/", 1)[1]]
+        assert lo <= got / ref[key] <= hi, (cell, got, ref)
+        return
     want = ref["temp_bytes"] if kind == "train" else \
         ref["live_peak_less_cpu_copies"]
     lo, hi = BANDS[kind]
     assert lo <= got / want <= hi, (cell, got, ref)
-    assert ref["live_peak"] <= ref["temp_bytes"]
 
 
 @pytest.mark.parametrize("cell", SMOKE)
@@ -271,30 +321,75 @@ def test_logits_never_gathered_whole(traced, mesh):
 
 def test_full_width_pins_give_reference_verdicts():
     """The pinned full-width cells (``python -m repro_torch.launch.dryrun
-    --pins``: traced in 15-45 s each on this CPU, so not in this suite)
+    --pins``: traced in 15-190 s each on this CPU, so not in this suite)
     against the reference's compiled values pinned beside them
     (``tests/_dryrun_reference.py --pins``): argument bytes equal, qwen3
     ``train_4k``'s temp within 0.8-1.25x of the reference's, and each
     cell's fits-in-80-GB verdict (argument + temp under 80e9 B) the
     reference's once XLA's CPU copies of the step's bf16 inputs are taken
-    out. Taken as compiled, the reference's deepseek-v2 ``decode_32k``
-    does not fit: 55.67 of its 75.02 GiB of temp are f32 copies of the
-    stacked bf16 expert weights and caches, made before the layer loop
-    because the CPU has no bf16 dot."""
+    out. Taken as compiled, the reference's deepseek-v2
+    ``decode_32k`` does not fit: 55.67 of its 75.02 GiB of temp are f32
+    copies of the stacked bf16 expert weights and caches, made before the
+    layer loop because the CPU has no bf16 dot. rwkv6-7b ``train_4k``
+    fits on both sides (before the SSM chunk step lost its [B, L, L, H,
+    K] decay and the rwkv layer its whole-weight placement, the port read
+    361.79 GiB of temp there)."""
     with open(PINS) as f:
         pins = json.load(f)
     ref = pins["reference"]["cells"]
-    for cell in ("single/qwen3-1.7b/train_4k",
-                 "multi/deepseek-v2-236b/decode_32k"):
+    for arch, shape, mesh in PIN_CELLS:
+        cell = f"{mesh}/{arch}/{shape}"
         got, want = pins["cells"][cell], ref[cell]
         assert got["argument_bytes"] == want["argument_bytes"], cell
-        port_fits = got["argument_bytes"] + got["temp_bytes"] < 80e9
-        less = want["argument_bytes"] + want["live_peak_less_cpu_copies"]
-        assert port_fits == (less < 80e9), cell
+        assert fits(got["argument_bytes"], got["temp_bytes"]) == fits(
+            want["argument_bytes"], want["live_peak_less_cpu_copies"]), cell
     q = pins["cells"]["single/qwen3-1.7b/train_4k"]
     qref = ref["single/qwen3-1.7b/train_4k"]
     assert 0.8 <= q["temp_bytes"] / qref["temp_bytes"] <= 1.25
-    assert (q["argument_bytes"] + q["temp_bytes"] < 80e9) == \
-        (qref["argument_bytes"] + qref["temp_bytes"] < 80e9)
+    assert fits(q["argument_bytes"], q["temp_bytes"]) == \
+        fits(qref["argument_bytes"], qref["temp_bytes"])
     d = ref["multi/deepseek-v2-236b/decode_32k"]
-    assert d["argument_bytes"] + d["temp_bytes"] > 80e9
+    assert not fits(d["argument_bytes"], d["temp_bytes"])
+    r = pins["cells"]["single/rwkv6-7b/train_4k"]
+    assert fits(r["argument_bytes"], r["temp_bytes"])
+
+
+def _queue3() -> str:
+    """ROADMAP.md's queue 3 (faults of the port against the reference)."""
+    with open(os.path.join(HERE, "..", "ROADMAP.md")) as f:
+        text = f.read()
+    start = text.index("### Queue 3")
+    return text[start:text.index("\n## ", start)]
+
+
+@pytest.fixture(scope="module")
+def grid():
+    with open(GRID) as f:
+        return json.load(f)
+
+
+def test_grid_holds_every_run(grid):
+    """``tests/torch_dryrun_grid.json`` (``python -m
+    repro_torch.launch.dryrun --grid`` beside ``tests/_dryrun_reference.py
+    --grid``) records all 64 runs of the reference's applicable grid, 32
+    cells on the single- and the multi-pod mesh, on both sides."""
+    runs = {f"{m}/{a}/{s}" for a, s, m in grid_runs()}
+    assert len(runs) == 64
+    assert set(grid["cells"]) == runs
+    assert set(grid["reference"]["cells"]) == runs
+
+
+@pytest.mark.parametrize("run", sorted(f"{m}/{a}/{s}"
+                                       for a, s, m in grid_runs()))
+def test_grid_run_held_to_reference(grid, run):
+    """Each run of the grid traced (``ok``), its argument bytes the
+    reference's compiled ones, and its fits-in-80-GB verdict the
+    reference's less XLA's CPU copies, or the run named in
+    ``ROADMAP.md``'s queue 3 with the buffers behind the difference."""
+    got, want = grid["cells"][run], grid["reference"]["cells"][run]
+    assert got["ok"], (run, got.get("error"))
+    assert "error" not in want, (run, want.get("error"))
+    assert got["argument_bytes"] == want["argument_bytes"], run
+    if fits(got["argument_bytes"], got["temp_bytes"]) != fits(
+            want["argument_bytes"], want["live_peak_less_cpu_copies"]):
+        assert f"`{run}`" in _queue3(), run

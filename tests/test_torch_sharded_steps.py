@@ -4,12 +4,15 @@ the MLP split on its hidden, vocab-sharded logits and loss, the
 sequence-split decode over the dry run's cache placement, MoE and SSM
 layers on local tensors) give, on a (data=2, model=2) mesh of 4 gloo
 ranks, what the same steps give with no mesh: the forward's logits, the
-loss and every gradient leaf for qwen3, deepseek-v2 and zamba2 smoke
-configs in f32, and one decode step's logits and written cache for qwen3
-and deepseek-v2 (whose dense prefix layer's cache the reference's rule
-places one dim off: rows whole, sequence and latent split), on that mesh
-(qwen3's cache split on its KV heads) and on (data=1, model=4) (split on
-the sequence). All four ranks return the same whole tensors.
+loss and every gradient leaf for qwen3, deepseek-v2, zamba2, whisper,
+llama-3.2-vision and rwkv6 smoke configs in f32, and one decode step's
+logits and written cache for each (deepseek-v2's dense prefix layer's
+cache the reference's rule places one dim off: rows whole, sequence and
+latent split), on that mesh (qwen3's cache split on its KV
+heads) and on (data=1, model=4) (split on the sequence). whisper and the
+VLM run their cross-attention (and whisper its encoder) on stated
+placements, rwkv6 its head-parallel layer, its cache's state split on
+the heads, zamba2's mamba layers their cache gathered for the step. All four ranks return the same whole tensors.
 ``tests/_torch_dist_steps.py`` runs the ranks in a subprocess."""
 import os
 import pickle
@@ -46,7 +49,8 @@ def _close(got, want, what):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "whisper-small",
+                                  "llama-3.2-vision-90b", "rwkv6-7b"])
 def test_sharded_forward_loss_grads_match_unsharded(steps, arch):
     want = steps[0][arch]["want"]
     for rank in steps:
@@ -59,7 +63,9 @@ def test_sharded_forward_loss_grads_match_unsharded(steps, arch):
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4"])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b",
+                                  "zamba2-1.2b", "whisper-small",
+                                  "llama-3.2-vision-90b", "rwkv6-7b"])
 def test_sharded_decode_matches_unsharded(steps, arch, mesh):
     want = steps[0][arch]["want"]
     for rank in steps:

@@ -171,6 +171,54 @@ def test_exact_where_reference_clamp_bites(jx):
     _close(exact, small, SCAN_TOL)
 
 
+def _traced_rwkv_layer(chunk):
+    """One rwkv6 smoke layer's time mix, forward and backward, on meta
+    tensors under ``traced_metrics`` (B 2, T 192, f32), with every output
+    shape an op records; returns (temp bytes, the shapes)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch.hlo_metrics import traced_metrics
+    base = smoke_config("rwkv6-7b")
+    cfg = base.replace(ssm=dataclasses.replace(base.ssm, chunk=chunk))
+    p = ssm.init_rwkv_block(0, "l", cfg, torch.float32, "meta")
+    w = [t.requires_grad_(True) for t in (p["tm_wr"], p["tm_wk"],
+                                          p["tm_wv"], p["bonus"])]
+    x = torch.empty(2, 192, cfg.d_model, device="meta", requires_grad=True)
+    shapes = set()
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    shapes.add(tuple(t.shape))
+            return out
+
+    def step(x, *w):
+        y = ssm.rwkv_time_mix(p, x, cfg)[0]
+        return torch.autograd.grad(y.square().sum(), [x, *w])
+
+    with Shapes():
+        m, _ = traced_metrics(step, x, *w)
+    return m["memory"]["temp_bytes"], shapes
+
+
+def test_chunk_step_holds_no_chunk_pairs_with_k():
+    """The scan's chunk step keeps the exact decay without a tensor of two
+    position axes of a whole chunk and K (it was [B, L, L, H, K] a chunk,
+    which autograd kept for every chunk: 361.79 GiB of temp for rwkv6-7b
+    ``train_4k`` at full width): at chunks of 48 and 96 tokens (16-token
+    sub-chunks, K 32), no op of one rwkv6 smoke layer's forward and
+    backward makes such a shape, and the trace's temp grows no faster
+    than linearly in the chunk length."""
+    temps = {}
+    for L in (48, 96):
+        temps[L], shapes = _traced_rwkv_layer(L)
+        K = smoke_config("rwkv6-7b").ssm.head_dim
+        bad = [s for s in shapes if list(s).count(L) >= 2 and K in s]
+        assert not bad, (L, bad)
+    assert temps[96] <= 2 * temps[48], temps
+
+
 def test_linear_attn_step(jx):
     rng = np.random.default_rng(3)
     B, H, K, P = 2, 3, 8, 16
