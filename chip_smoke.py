@@ -208,7 +208,10 @@ non-zero:
              layer), against the same tokens through paged
              ``prefill_step`` in 32 chunks of 1024 with use_flash (every
              prefill_attention_paged launch on "wgmma"): last-position
-             logits within MODEL_REL_TOL; then the chunked run again with
+             logits within MODEL_REL_TOL; one layer's blocked attention
+             at qwen3-1.7b's heads, S 32768, recorded (grad on, its saved
+             tensors dropped) and lean (no grad): bit-equal, each peak
+             printed; then the chunked run again with
              every launch held against its plain version on copies of its
              inputs taken at the call (relative L2 per (row, KV head)
              within LATE_REL_TOL, Skv up to 32768 over a 2048-page table),
@@ -223,7 +226,14 @@ non-zero:
              "full" against "none" in bf16 within 1e-3; bf16 remat "full"
              against the CPU's f32 within MODEL_REL_TOL; AdamW in place on
              the card against the CPU on the same gradients (the params'
-             update, m and v) within 1e-6. Then qwen3-1.7b at full width,
+             update, m and v) within 1e-6. One full-width qwen3-1.7b step
+             at S 4096 with the loss's NLL in its plain form (f32 logits
+             whole) and row-blocked: each peak, the loss's and the worst
+             leaf's gradient gap within REMAT_TOL. grouped attention's
+             softmax·V at whisper-small's encoder shapes (B 4, S 1500, H
+             12, D 64, bf16) against the plain graph: output and gradients
+             bit-equal, the bytes each keeps for the backward pass. Then
+             qwen3-1.7b at full width,
              f32 params, bf16
              activations, remat "full", seq 4096 at batch 1 (train_4k's
              256 rows cut to 1), 6 ``Trainer`` steps: every loss and grad
@@ -247,12 +257,16 @@ non-zero:
              checkpointed and restored onto the mesh
              (``restore(shardings=...)``): every leaf's ``full_tensor()``
              bit-equal; (c) ``python -m repro_torch.launch.dryrun`` at full
-             width, qwen3-1.7b ``train_4k`` on the fake 16x16 mesh and
-             deepseek-v2-236b ``decode_32k`` on the fake 2x16x16 mesh, each
-             in a subprocess on the host (a fake group cannot share a
-             process with NCCL), started first and read last: each
-             records ``ok``; per-device argument and temp GiB, FLOPs and
-             wire bytes by kind printed. The process group is destroyed
+             width, the pinned cells (``PIN_CELLS``: qwen3-1.7b,
+             rwkv6-7b and whisper-small ``train_4k`` on the fake 16x16
+             mesh, deepseek-v2-236b and llama-3.2-vision-90b
+             ``decode_32k`` on the fake 2x16x16 mesh) and the smoke cells,
+             each in a subprocess on the host (a fake group cannot share a
+             process with NCCL), started with phase 14 and read last: each
+             records ``ok``, is held to ``tests/torch_dryrun_pins.json``
+             and gives the reference's fits-in-80-GB verdict; per-device
+             argument and temp GiB, FLOPs and wire bytes by kind
+             printed. The process group is destroyed
              at the end of the phase.
 
 Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9-12 are read with the
@@ -3761,6 +3775,50 @@ def _planted_pages(torch, rec, dst, src):
                      args[1].shape[1]).max().item()
 
 
+def _blocked_modes(torch, seed):
+    """One layer's ``blocked_attention`` at qwen3-1.7b's heads, S LONG_S,
+    bf16, causal, in both of its modes: recorded (inputs that require
+    grad, grad on; what autograd would keep for the backward pass is
+    dropped by a saved-tensors hook, so the peak is the forward's own
+    buffers) and lean (no grad). The outputs must be bit-equal; each
+    peak above the inputs and wall is printed."""
+    from repro_torch.models import attention as attn
+    H, Hkv, D = HEADS["qwen3-1.7b"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 141)
+    q, k, v = (torch.randn(1, LONG_S, h, D, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
+    out, res = {}, {}
+    for mode in ("recorded", "lean"):
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        if mode == "recorded":
+            with torch.enable_grad(), \
+                    torch.autograd.graph.saved_tensors_hooks(
+                        lambda x: None, lambda x: x):
+                o = attn.blocked_attention(
+                    *(x.detach().requires_grad_(True) for x in (q, k, v)))
+            require(o.grad_fn is not None, "the recorded path recorded "
+                                           "nothing")
+        else:
+            with torch.no_grad():
+                o = attn.blocked_attention(q, k, v)
+        torch.cuda.synchronize()
+        res[mode] = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                     time.perf_counter() - t)
+        out[mode] = o.detach()
+        del o
+    same = torch.equal(out["recorded"], out["lean"])
+    log(f"  one layer's blocked attention, H {H}, Hkv {Hkv}, D {D}, S "
+        f"{LONG_S}, bf16, causal: peak above its inputs recorded "
+        f"{res['recorded'][0]:.3f} GiB ({res['recorded'][1]:.2f}s; saved "
+        f"tensors dropped), lean {res['lean'][0]:.3f} GiB "
+        f"({res['lean'][1]:.2f}s); outputs bit-equal {same}")
+    require(same, "lean blocked attention differs from the recorded path")
+    del q, k, v, out
+    _free(torch)
+
+
 def long_seq_phase(torch, seed):
     """Phase 14: qwen3-1.7b at full width, bf16, B 1, S 32768 (the
     reference's prefill_32k): ``forward(last_only=True)`` on the blocked
@@ -3798,6 +3856,7 @@ def long_seq_phase(torch, seed):
     require(peak < LONG_PEAK_GIB, f"blocked forward peak {peak:.2f} GiB")
     require(fwd_launches == 0, "the forward launched a kernel")
     require(bool(torch.isfinite(lf).all()), "forward logits not finite")
+    _blocked_modes(torch, seed)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -3965,6 +4024,107 @@ def _train_step_check(torch, cfg, S, seed, dev="cuda"):
     return r
 
 
+def _nll_modes(torch, cfg, seed):
+    """One step of ``cfg`` (full width) at TRAIN_SEQ x 1 through
+    ``loss_fn`` and autograd (``_grads``), once with the whole-vocabulary
+    NLL's plain version (``transformer._nll_terms_plain``: the logits cast
+    to f32 whole) and once with the row-blocked ``_BlockedNll``, from the
+    same params and batch: each peak ``max_memory_allocated``, the loss's
+    relative gap and the worst leaf's gradient gap (within REMAT_TOL).
+    The plain step's gradients wait on the host while the blocked step
+    runs, so both peaks start from the same memory."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import DataConfig, device_batch
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=1, seed=seed)
+    params = tf.init_params(cfg, seed, "cuda")
+    batch = device_batch(dc, 0, None, "cuda")
+    blocked, res = tf._nll_terms, {}
+    try:
+        for mode, fn in (("plain", tf._nll_terms_plain),
+                         ("blocked", blocked)):
+            tf._nll_terms = fn
+            _free(torch)
+            base = torch.cuda.memory_allocated() / 2 ** 30
+            t = time.perf_counter()
+            loss, g = _grads(torch, cfg, params, batch)
+            torch.cuda.synchronize()
+            res[mode] = (loss, _peak_gib(torch), base,
+                         time.perf_counter() - t)
+            if mode == "plain":
+                g_plain = [x.cpu() for x in g]
+                del g
+    finally:
+        tf._nll_terms = blocked
+    gap = _worst_leaf(torch, g_plain, g)
+    rel = abs(res["blocked"][0] - res["plain"][0]) / abs(res["plain"][0])
+    del g, g_plain, params
+    _free(torch)
+    log(f"  (a) the loss's NLL over qwen3-1.7b's {cfg.vocab_size} logits, "
+        f"one step at S {TRAIN_SEQ} x 1 (remat {cfg.remat}): plain (f32 "
+        f"logits whole) peak {res['plain'][1]:.2f} GiB "
+        f"({res['plain'][3]:.2f}s), row-blocked peak "
+        f"{res['blocked'][1]:.2f} GiB ({res['blocked'][3]:.2f}s), both "
+        f"from {res['plain'][2]:.2f} GiB; loss rel gap {rel:.3e}, "
+        f"worst-leaf grad rel L2 {gap:.3e} (tol {REMAT_TOL})")
+    require(rel <= REMAT_TOL and gap <= REMAT_TOL,
+            f"blocked NLL off the plain version: loss {rel}, grads {gap}")
+
+
+# whisper-small's encoder self-attention: B 4 (phase 12d's batch), its
+# 1500 frames, 12 heads of 64
+ENC_B, ENC_S, ENC_H, ENC_D = 4, 1500, 12, 64
+
+
+def _encoder_pv_check(torch, seed):
+    """grouped_attention's softmax·V (``attention._SoftmaxPV``) at
+    whisper-small's encoder shapes in bf16, non-causal, against the plain
+    graph (``_softmax_pv_plain`` on the same scores): output and the
+    gradients of q, k and v bit-equal on the card, and the bytes each
+    keeps for the backward pass (allocated after the forward, less its
+    output)."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device="cuda").manual_seed(seed + 151)
+    q, k, v = (torch.randn(ENC_B, ENC_S, ENC_H, ENC_D, generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    g = torch.randn(q.shape, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+
+    def plain(q, k, v, mask):
+        B, S, H, Dh = q.shape
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, S, H, 1, Dh)
+                         .float(), k.float()) * (Dh ** -0.5)
+        return attn._softmax_pv_plain(s, v, mask).reshape(B, S, H, Dh) \
+            .to(q.dtype)
+
+    res = {}
+    for name, fn in (("plain", plain), ("helper", attn.grouped_attention)):
+        _free(torch)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        before = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            out = fn(*leaves, None)
+            torch.cuda.synchronize()
+            kept = (torch.cuda.memory_allocated() - before
+                    - out.numel() * out.element_size())
+            grads = torch.autograd.grad(out, leaves, g)
+        res[name] = (out.detach(), [x.detach() for x in grads], kept)
+        del out, grads, leaves
+    same = torch.equal(res["plain"][0], res["helper"][0]) and all(
+        torch.equal(a, b) for a, b in zip(res["plain"][1], res["helper"][1]))
+    log(f"  (a) grouped attention's softmax·V at whisper-small's encoder "
+        f"(B {ENC_B}, S {ENC_S}, H {ENC_H}, D {ENC_D}, bf16): kept for the "
+        f"backward pass {res['helper'][2] / 2 ** 20:.1f} MiB against the "
+        f"plain graph's {res['plain'][2] / 2 ** 20:.1f} MiB; output and "
+        f"q/k/v gradients bit-equal {same}")
+    require(same, "softmax·V helper differs from the plain graph")
+    require(res["helper"][2] < res["plain"][2],
+            "softmax·V helper keeps no less than the plain graph")
+    del res, q, k, v, g
+    _free(torch)
+
+
 def train_phase(torch, seed, smi):
     """Phase 15: (a) one step of qwen3-1.7b at full width cut to
     CHECK_LAYERS layers on the card against the CPU
@@ -3994,6 +4154,8 @@ def train_phase(torch, seed, smi):
         f"{MODEL_REL_TOL}); AdamW in place vs the CPU on the same grads "
         f"{r['adamw']:.3e} (tol {ADAMW_TOL})")
     _free(torch)
+    _nll_modes(torch, cfg, seed)
+    _encoder_pv_check(torch, seed)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                     global_batch=1, seed=seed)
     tr = Trainer(cfg, dc, AdamWConfig(lr=1e-4, warmup_steps=2,

@@ -120,11 +120,15 @@ def blocked_attention(q, k, v, *, causal=True, window=None, cap=None,
     every row of the block, and a masked score adds exactly 0 to the
     softmax and to P·V (a block whose first row precedes position 0 reads
     every key). One Python loop over the blocks serves both of the
-    reference's lowerings (its ``unroll``, which changes no number)."""
+    reference's lowerings (its ``unroll``, which changes no number).
+    Where autograd records nothing (no grad, or no input that requires
+    it), each block runs :func:`_attend_lean`: at most two block-sized f32
+    buffers at once, the same values."""
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     block_q = min(block_q, Sq)
+    lean = not _records(q, k, v)
     qg = q.reshape(B, Sq, Hkv, G, Dh)
     kh = k.float().permute(0, 2, 1, 3)              # [B,Hkv,Skv,Dh]
     vh = v.float().permute(0, 2, 1, 3)              # [B,Hkv,Skv,Dv]
@@ -138,22 +142,122 @@ def blocked_attention(q, k, v, *, causal=True, window=None, cap=None,
         # over all Skv keys), so such a block reads them all
         hi = (min(Skv, start + n + q_offset)
               if causal and start + q_offset >= 0 else Skv)
-        s = torch.einsum("bqhgd,bhkd->bhgqk",
-                         qg[:, start:start + n].float(),
-                         kh[:, :, :hi]) * (Dh ** -0.5)
-        if cap is not None:
-            s = softcap(s, cap)
         mask = torch.ones((n, hi), dtype=torch.bool, device=q.device)
         if causal:
             mask &= k_pos[:, :hi] <= q_pos
         if window is not None:
             mask &= k_pos[:, :hi] > q_pos - window
+        if lean:
+            outs.append(_attend_lean(
+                qg[:, start:start + n], kh[:, :, :hi], vh[:, :, :hi],
+                mask[None, None, None], cap, v.dtype, _BLOCK_EQS))
+            continue
+        s = torch.einsum(_BLOCK_EQS[0], qg[:, start:start + n].float(),
+                         kh[:, :, :hi]) * (Dh ** -0.5)
+        if cap is not None:
+            s = softcap(s, cap)
         w = _masked_softmax(s, mask[None, None, None])
-        outs.append(torch.einsum("bhgqk,bhkd->bqhgd",
-                                 w.to(v.dtype).float(), vh[:, :, :hi]))
+        outs.append(torch.einsum(_BLOCK_EQS[1], w.to(v.dtype).float(),
+                                 vh[:, :, :hi]))
         del s, w                    # one block's scores live at a time
     out = torch.cat(outs, dim=1)
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+# the scores' and P·V's einsums: the blocked loop's (K/V head-major) and
+# grouped_attention's (K/V as given, [B,Sk,Hkv,D])
+_BLOCK_EQS = ("bqhgd,bhkd->bhgqk", "bhgqk,bhkd->bqhgd")
+_GROUP_EQS = ("bqhgd,bkhd->bhgqk", "bhgqk,bkhd->bqhgd")
+
+
+def _records(*ts) -> bool:
+    """Whether autograd records an op on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _attend_lean(q, k, v, mask, cap, p_dtype, eqs):
+    """Attention of ``q`` over ``k``/``v`` in f32 (each widened where it
+    is used, as the recorded path widens it) where autograd records
+    nothing: the scores are scaled, capped, masked and softmaxed in place,
+    and the f32 weights are freed before their rounding to ``p_dtype``
+    (the P·V operand's dtype) is widened, so at most two score-sized f32
+    buffers live at once. Each op is the recorded path's on the same
+    values (``einsum(...) * scale``, ``softcap``, ``where``,
+    ``softmax``, ``w.to(p_dtype).float()``), so the result is bit-equal to
+    it."""
+    s = torch.einsum(eqs[0], q.float(), k.float()).mul_(
+        q.shape[-1] ** -0.5)
+    if cap is not None:
+        s.div_(cap).tanh_().mul_(cap)
+    if mask is not None:
+        s.masked_fill_(~mask, NEG_INF)
+    torch.softmax(s, dim=-1, out=s)
+    if s.dtype != p_dtype:
+        p = s.to(p_dtype)
+        del s
+        s = p.float()
+        del p
+    return torch.einsum(eqs[1], s, v.float())
+
+
+def _softmax(scores, mask):
+    """The weights of ``scores`` (f32): a softmax over the keys, the
+    positions ``mask`` drops (where given) set to NEG_INF first."""
+    return (_masked_softmax(scores, mask) if mask is not None
+            else torch.softmax(scores, dim=-1))
+
+
+def _softmax_pv_plain(scores, v, mask):
+    """softmax·V as autograd records it op by op (the plain version of
+    :class:`_SoftmaxPV`, for the tests and ``chip_smoke.py``): it keeps
+    the f32 weights, an f32 copy of their rounding to ``v``'s dtype and
+    an f32 copy of ``v`` for the backward pass."""
+    w = _softmax(scores, mask)
+    return torch.einsum(_GROUP_EQS[1], w.to(v.dtype).float(), v.float())
+
+
+class _SoftmaxPV(torch.autograd.Function):
+    """softmax·V of :func:`_softmax_pv_plain` (scores [B,Hkv,G,Sq,Sk],
+    ``v`` [B,Sk,Hkv,D]), keeping the f32 weights once and ``v`` in its own
+    dtype for the backward pass (the plain graph keeps the weights and the
+    f32 copies of their rounding and of ``v`` that its einsum lays out for
+    its ``bmm``). The backward pass lays them out again, rounding the
+    weights to ``v``'s dtype for dV, and runs the two ``bmm`` that
+    autograd runs for that einsum, rounds dP to ``v``'s dtype, and runs
+    the softmax's and the mask's backward, so values and gradients are
+    the plain graph's bit for bit. The mask (bool, as given) is held as
+    it is."""
+
+    @staticmethod
+    def forward(ctx, scores, v, mask):
+        w = _softmax(scores, mask)
+        ctx.mask = mask
+        ctx.save_for_backward(w, v)
+        return torch.einsum(_GROUP_EQS[1], w.to(v.dtype).float(), v.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        w, v = ctx.saved_tensors
+        B, Hkv, G, Sq, Sk = w.shape
+        D = v.shape[-1]
+        # the einsum's operands: [B*Hkv, Sq*G, Sk] weights, [B*Hkv, Sk, D]
+        # values, and the output's gradient laid out as its product
+        wr = w.to(v.dtype).float().permute(0, 1, 3, 2, 4).reshape(
+            B * Hkv, Sq * G, Sk)
+        vr = v.float().permute(0, 2, 1, 3).reshape(B * Hkv, Sk, D)
+        gr = g.reshape(B, Sq, Hkv, G, D).permute(0, 2, 1, 3, 4).reshape(
+            B * Hkv, Sq * G, D)
+        dv = wr.transpose(1, 2).bmm(gr).view(B, Hkv, Sk, D).permute(
+            0, 2, 1, 3).to(v.dtype)
+        del wr
+        dw = gr.bmm(vr.transpose(1, 2)).view(B, Hkv, Sq, G, Sk).permute(
+            0, 1, 3, 2, 4)
+        del vr, gr
+        ds = torch._softmax_backward_data(dw.to(v.dtype).float(), w, -1,
+                                          w.dtype)
+        if ctx.mask is not None:
+            ds = torch.where(ctx.mask, ds, 0.0)
+        return ds, dv, None
 
 
 # id(local weight shard) -> its spec, while a sharded decode step runs
@@ -205,25 +309,26 @@ def grouped_attention(q, k, v, mask, cap=None):
     """q: [B,Sq,H,Dh]; k,v: [B,Sk,Hkv,Dh]; mask: [B?,Sq,Sk] or [Sq,Sk] bool.
 
     Returns [B,Sq,H,Dh]. Grouped (GQA) without repeating KV heads; scores
-    and softmax in f32.
+    and softmax in f32. softmax·V is :class:`_SoftmaxPV` where autograd
+    records (the f32 weights kept once), else :func:`_attend_lean`.
     """
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, Dh)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) * (Dh ** -0.5)
-    if cap is not None:
-        scores = softcap(scores, cap)
     if mask is not None:
         if mask.dim() == 2:                    # [Sq,Sk]
             mask = mask[None, None, None]
         elif mask.dim() == 3:                  # [B,Sq,Sk]
             mask = mask[:, None, None]
-        w = _masked_softmax(scores, mask)
+    if not _records(q, k, v):
+        out = _attend_lean(qg, k, v, mask, cap, v.dtype, _GROUP_EQS)
     else:
-        w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype).float(), v.float())
+        scores = torch.einsum(_GROUP_EQS[0], qg.float(),
+                              k.float()) * (Dh ** -0.5)
+        if cap is not None:
+            scores = softcap(scores, cap)
+        out = _SoftmaxPV.apply(scores, v, mask)
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 

@@ -566,8 +566,15 @@ def _embed_tokens(params, cfg, tokens, positions=None):
         # a position past the table (an engine's sentinel row) reads NaN,
         # as the reference's ``jnp.take`` fills it; it never indexes out
         inside = (pos >= 0) & (pos < table.shape[0])
-        pe = take_rows(table, pos.clamp(0, table.shape[0] - 1)).to(x.dtype)
-        x = x + torch.where(inside[..., None], pe, float("nan"))
+        pe = take_rows(table, pos.clamp(0, table.shape[0] - 1))
+        # in a mesh: the add on x's placement, the positions' rows brought
+        # to it (x's rows, its split of d_model) by stated moves
+        xs = spec_of(x)
+        ps = (xs[0] if pe.shape[0] == x.shape[0] else None, None, xs[-1])
+        x = local_call(
+            lambda x, pe, inside: x + torch.where(
+                inside[..., None], pe.to(x.dtype), float("nan")),
+            x, pe, inside, in_specs=[xs, ps, ps[:2]], out_specs=[xs])
     return x
 
 
@@ -669,25 +676,100 @@ def _sharded_nll_terms(lf, labels):
     return top + torch.log(sumexp), gold
 
 
+# the whole-vocabulary NLL's blocks of rows: one block's f32 logits stay
+# within about NLL_BLOCK_BYTES, and a block holds at least NLL_MIN_ROWS
+# rows (all of them where there are fewer). CUDA's row reduction splits
+# each row of a call over several thread blocks when the call has few
+# rows (at most 4 x the card's SMs: 528 on an H100), and that order of
+# summation moves ``lse`` in its last bit; from 1024 rows up each row is
+# summed as in one call over all the rows, so the loss and the gradient
+# are the whole-tensor form's bit for bit
+NLL_BLOCK_BYTES = 256 << 20
+NLL_MIN_ROWS = 1024
+
+
+def _nll_blocks(rows: int, vocab: int):
+    """The (start, stop) of each block of ``rows`` rows: as few blocks as
+    keep one block's f32 logits within NLL_BLOCK_BYTES, but none under
+    NLL_MIN_ROWS rows, their sizes within one row of each other."""
+    n = -(-rows * vocab * 4 // NLL_BLOCK_BYTES)
+    n = max(1, min(n, rows // NLL_MIN_ROWS))
+    cuts = [rows * i // n for i in range(n + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+class _BlockedNll(torch.autograd.Function):
+    """Per-row ``logsumexp(l) - l[label]`` in f32 over logits whose
+    vocabulary is whole, a block of rows at a time (:func:`_nll_blocks`):
+    each block's logits are cast to f32 only while it runs. It keeps the
+    logits in their own dtype and the f32 ``lse`` a row for the backward
+    pass, which writes ``exp(l - lse) * g``, less ``g`` at the label,
+    into one gradient in the logits' dtype, a block at a time (one
+    rounding, as the backward pass of ``logits.float()`` rounds). The
+    plain version is :func:`_nll_terms_plain`, which holds [rows, V] f32
+    buffers whole."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        V = logits.shape[-1]
+        l2, lab = logits.reshape(-1, V), labels.reshape(-1, 1)
+        lse, nll = [], []
+        for a, b in _nll_blocks(l2.shape[0], V):
+            lf = l2[a:b].float()
+            lse.append(torch.logsumexp(lf, dim=-1))
+            nll.append(lse[-1] - lf.gather(-1, lab[a:b])[:, 0])
+            del lf                  # one block's f32 logits at a time
+        lse = torch.cat(lse)
+        ctx.save_for_backward(logits, lse, labels)
+        return torch.cat(nll).reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, labels = ctx.saved_tensors
+        V = logits.shape[-1]
+        l2, lab = logits.reshape(-1, V), labels.reshape(-1, 1)
+        g = g.reshape(-1, 1)
+        grad = torch.empty_like(l2)
+        for a, b in _nll_blocks(l2.shape[0], V):
+            d = (l2[a:b].float() - lse[a:b, None]).exp_()
+            d.mul_(g[a:b]).scatter_add_(-1, lab[a:b], -g[a:b])
+            grad[a:b] = d
+            del d                   # one block's f32 gradient at a time
+        return grad.reshape(logits.shape), None
+
+
+def _nll_terms(logits, labels):
+    """Per-row NLL terms (``lse - gold``, f32) of logits whose vocabulary
+    is whole on this rank: :class:`_BlockedNll`."""
+    return _BlockedNll.apply(logits, labels)
+
+
+def _nll_terms_plain(logits, labels):
+    """The plain version of :func:`_nll_terms` (for the tests and
+    ``chip_smoke.py``): the logits cast to f32 whole, then logsumexp and
+    the gold logit, autograd keeping [rows, V] f32 buffers."""
+    lf = logits.float()
+    return (torch.logsumexp(lf, dim=-1)
+            - lf.gather(-1, labels[..., None])[..., 0])
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
     """Next-token NLL in f32 (through logsumexp), plus the MoE aux losses
     over ``num_layers``. Returns (loss, metrics) with ``nll``, ``loss``
     and, for MoE configs, ``z_loss``, ``lb_loss`` and ``dropped_frac``."""
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()
-    lf = logits.float()
-    if _vocab_sharded(lf):
-        lse, gold = _sharded_nll_terms(lf, labels)
+    if _vocab_sharded(logits):
+        lse, gold = _sharded_nll_terms(logits.float(), labels)
+        terms = lse - gold
     else:
-        # in a mesh: each rank's rows, the vocabulary whole (whisper's,
-        # which "model" does not divide)
-        rows = spec_of(lf)[:-1]
-        lse, gold = local_call(
-            lambda l, lab: (torch.logsumexp(l, dim=-1),
-                            l.gather(-1, lab[..., None])[..., 0]),
-            lf, labels, in_specs=[rows + (None,), rows],
-            out_specs=[rows, rows])
-    nll = torch.mean(lse - gold)
+        # the vocabulary whole (one device; in a mesh each rank's rows:
+        # whisper's vocabulary, which "model" does not divide)
+        rows = spec_of(logits)[:-1]
+        terms = local_call(_nll_terms, logits, labels,
+                           in_specs=[rows + (None,), rows],
+                           out_specs=[rows])
+    nll = torch.mean(terms)
     loss = nll
     metrics = {"nll": nll}
     for k in ("z_loss", "lb_loss"):

@@ -15,7 +15,9 @@ those copies. ``live_peak_less_f32_converts`` also leaves out every f32
 value a convert makes (inside the loop XLA's CPU backend slices each
 layer's weights out of the f32 copy and converts them again for its
 dot, a copy no eager step makes), and with them the f32 values its
-program computes by a convert fusion.
+program computes by a convert fusion. ``live_peak_less_dot_copies``
+leaves out, besides those copies, only the f32 copies that a dot reads
+of bf16 values (:func:`_dot_copies`), wherever the step makes them.
 
 Usage:
     python tests/_dryrun_reference.py ARCH SHAPE single|multi   # one cell
@@ -38,7 +40,8 @@ from concurrent.futures import ThreadPoolExecutor
 PIN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
              ("deepseek-v2-236b", "decode_32k", "multi"),
              ("llama-3.2-vision-90b", "decode_32k", "multi"),
-             ("rwkv6-7b", "train_4k", "single"))
+             ("rwkv6-7b", "train_4k", "single"),
+             ("whisper-small", "train_4k", "single"))
 
 
 def temp_buffers(dump: str) -> dict:
@@ -55,6 +58,7 @@ def temp_buffers(dump: str) -> dict:
     converts = {m.group(1) for m in re.finditer(
         r"%(wrapped_convert[\w.]*) = f32\[[^\]]*\]\S* fusion\(%(param[\w.]*)"
         r"\)", hlo) if params.get(m.group(2)) == "bf16"}
+    dot_copies = _dot_copies(hlo)
     txt = open(ba).read()
     alloc = [a for a in re.split(r"\n(?=allocation \d+:)", txt)
              if "preallocated-temp" in a.split("\n")[0]][0]
@@ -73,7 +77,8 @@ def temp_buffers(dump: str) -> dict:
         copy = (name.split("{")[0] in converts and r is not None
                 and any(r[0] <= w <= r[1] for w in loops))
         vals.append({"name": name, "bytes": int(m.group(2)),
-                     "shape": m.group(3), "range": r, "cpu_copy": copy})
+                     "shape": m.group(3), "range": r, "cpu_copy": copy,
+                     "dot_copy": name.split("{")[0] in dot_copies})
 
     def peak(skip):
         end = max((v["range"][1] for v in vals if v["range"]), default=0)
@@ -95,7 +100,51 @@ def temp_buffers(dump: str) -> dict:
             "live_peak_less_cpu_copies": peak(lambda v: v["cpu_copy"]),
             "live_peak_less_f32_converts": peak(
                 lambda v: v["cpu_copy"] or (v["shape"].startswith("f32[")
-                                            and "convert" in v["name"]))}
+                                            and "convert" in v["name"])),
+            "live_peak_less_dot_copies": peak(
+                lambda v: v["cpu_copy"] or v["dot_copy"])}
+
+
+# floating-point ops that only move or convert values
+_MOVES = {"parameter", "convert", "bitcast", "copy", "transpose", "reshape",
+          "slice", "dynamic-slice", "concatenate", "broadcast"}
+
+
+def _dot_copies(hlo: str) -> set:
+    """The f32 values of an optimized HLO module that only widen bf16
+    data for a dot: a ``convert`` of a bf16 value, or a fusion whose
+    floating-point ops (scalars aside) only move or convert values, one of
+    them bf16, which a dot or convolution reads as an operand. XLA's CPU
+    backend gives each bf16 dot operand such an f32 copy, inside the
+    layer loop as well as before it."""
+    bodies = {m.group(1): m.group(2) for m in re.finditer(
+        r"^(?:ENTRY )?%(\S+) [^\n]*\{\n(.*?)\n\}", hlo, re.M | re.S)}
+    dtypes = dict(re.findall(r"%([\w.\-]+) = (\w+)\[", hlo))
+    read = set()
+    for m in re.finditer(r"= \S+ (?:dot|convolution)\(([^)]*)\)", hlo):
+        read.update(re.findall(r"%([\w.\-]+)", m.group(1)))
+
+    def widens(body):
+        ops = re.findall(r"= (\w+)\[([^\]]*)\]\S* ([\w\-]+)\(", body)
+        floats = [(dt, op) for dt, dims, op in ops
+                  if dt in ("f32", "bf16", "f16") and dims]
+        return (all(op in _MOVES for _, op in floats)
+                and any(dt == "bf16" for dt, _ in floats))
+
+    out = set()
+    for m in re.finditer(r"^\s+%([\w.\-]+) = f32\[[^\n]*? (fusion|convert)"
+                         r"\(([^)]*)\)([^\n]*)$", hlo, re.M):
+        name, op, args, rest = m.groups()
+        if name not in read:
+            continue
+        if op == "convert":
+            if dtypes.get(args.strip().lstrip("%")) == "bf16":
+                out.add(name)
+            continue
+        calls = re.search(r"calls=%([\w.\-]+)", rest)
+        if calls and widens(bodies.get(calls.group(1), "")):
+            out.add(name)
+    return out
 
 
 def compile_cell(arch, shape, mesh_kind, dump):

@@ -27,7 +27,11 @@ SEQ_MESH = (1, 4)             # the decode's cache split on the sequence
 B, S, SEED = 4, 16, 3
 ARCHS = {"qwen3-1.7b": True, "deepseek-v2-236b": True,
          "zamba2-1.2b": True, "whisper-small": True,
-         "llama-3.2-vision-90b": True, "rwkv6-7b": True}  # arch: decode
+         "llama-3.2-vision-90b": True, "rwkv6-7b": True,
+         "whisper-small/v513": False}  # case: decode
+# a case "<arch>/v<n>" is the arch's smoke config with a vocabulary of n,
+# which "model" does not divide: the loss takes the whole-vocabulary NLL on
+# each rank's rows
 F64 = ("whisper-small", "llama-3.2-vision-90b")
 
 
@@ -83,10 +87,13 @@ def rank_main(rank):
     meshes = {"2x2": make_mesh(MESH, ("data", "model")),
               "1x4": make_mesh(SEQ_MESH, ("data", "model"))}
     res = {}
-    for arch, decode in ARCHS.items():
+    for case, decode in ARCHS.items():
+        arch, _, vocab = case.partition("/v")
         fl = "float64" if arch in F64 else "float32"
         cfg = smoke_config(arch).replace(param_dtype=fl,
                                          activation_dtype=fl)
+        if vocab:
+            cfg = cfg.replace(vocab_size=int(vocab))
         params = tf.init_params(cfg, SEED, "cpu")
         if cfg.vision:
             params = unflatten(params, [
@@ -129,7 +136,7 @@ def rank_main(rank):
                 sctx = {k: distribute(v, rows) for k, v in ctx.items()}
                 got[name] = _steps(cfg, sp, tok, lab, sc, decode, sctx,
                                    train=name == "2x2")
-        res[arch] = {"got": got, "want": want if rank == 0 else None}
+        res[case] = {"got": got, "want": want if rank == 0 else None}
     return res
 
 

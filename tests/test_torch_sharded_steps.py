@@ -12,7 +12,11 @@ latent split), on that mesh (qwen3's cache split on its KV
 heads) and on (data=1, model=4) (split on the sequence). whisper and the
 VLM run their cross-attention (and whisper its encoder) on stated
 placements, rwkv6 its head-parallel layer, its cache's state split on
-the heads, zamba2's mamba layers their cache gathered for the step. All four ranks return the same whole tensors.
+the heads, zamba2's mamba layers their cache gathered for the step. whisper also
+runs with a vocabulary of 513 ("whisper-small/v513"), which "model" does
+not divide, so each rank's rows take the whole-vocabulary NLL
+(``transformer.py::_BlockedNll``). All four ranks return the same whole
+tensors.
 ``tests/_torch_dist_steps.py`` runs the ranks in a subprocess."""
 import os
 import pickle
@@ -50,7 +54,8 @@ def _close(got, want, what):
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b",
                                   "zamba2-1.2b", "whisper-small",
-                                  "llama-3.2-vision-90b", "rwkv6-7b"])
+                                  "llama-3.2-vision-90b", "rwkv6-7b",
+                                  "whisper-small/v513"])
 def test_sharded_forward_loss_grads_match_unsharded(steps, arch):
     want = steps[0][arch]["want"]
     for rank in steps:
