@@ -50,14 +50,16 @@ non-zero:
              same) and down projection (LS 256 x 6144 @ 6144 x 2048, BE
              2048 x 6144 @ the same) in bf16, f32 and f16, each tenant's
              output equal bit for bit across sm_be 0.1/0.3/0.9 and to a
-             call with the other tenant empty (bf16, f32);
-             spt_scatter/spt_gather of a 1 GiB LS and a 512 MiB BE bf16
-             tensor through the SPTs of a 2 GiB ColoredArena. Each
+             call with the other tenant empty (bf16, f32), and once in f16
+             at a ragged K (the gate projection's K less 2, on the
+             CUDA-core body); spt_scatter/spt_gather of a 1 GiB LS and a
+             512 MiB BE bf16 tensor through the SPTs of a 2 GiB
+             ColoredArena. Each
              against its plain version, and timed beside it, its bound and
-             one PyTorch library call. Every bf16 call of flash, dual-tenant
-             attention and the matmul must take the tensor-core ("wgmma")
-             route and every f32 (and f16) call the CUDA-core ("simt")
-             route; each
+             one PyTorch library call. Every bf16 and f16 call of flash,
+             dual-tenant attention and the matmul at K and N multiples of 8
+             must take the tensor-core ("wgmma") route, and every f32 call
+             and the ragged-K f16 matmul the CUDA-core ("simt") route; each
              time is printed with its route, TFLOP/s and host enqueue
              time (``host_ms``: checks, TMA tensor maps, launch), and
              rows 5-7 of the kernels' JSON line carry the drive's
@@ -327,9 +329,10 @@ SQ1_REL_TOL = {"bfloat16": 2e-2}
 # rounded the same on both sides, so kernel and plain version differ by f32
 # summation order and one output rounding (2^-11 of the value) each.
 F16_TOL = 2e-3
-# phase 7 attention in f16 (the CUDA-core body): elementwise within F16_TOL
-# as above; on late rows a few output roundings of 2^-11 against a dropped
-# or repeated key tile's ~0.1
+# phase 7 attention in f16 (the tensor-core body): elementwise within
+# F16_TOL as above, plus the kernel's rounding of P to f16 for P.V (2^-11
+# of each weight; the plain version keeps P in f32); on late rows a few
+# roundings of 2^-11 against a dropped or repeated key tile's ~0.1
 ATTN_TOL = dict(TOL, float16=F16_TOL)
 ATTN_LATE_REL_TOL = dict(LATE_REL_TOL, float16=2e-3)
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -1266,7 +1269,7 @@ def sgdrc_phase(torch, seed):
             for d in ("bfloat16", "float32", "float16")}
     # the MLP's gate and down projections (K, N), LS 256 + BE 2048 rows:
     # activations ~N(0, 1), weights ~N(0, 1/K) as the models' init scales
-    # them; bf16 on the tensor cores, f32 and f16 on the CUDA cores
+    # them; bf16 and f16 on the tensor cores, f32 on the CUDA cores
     mm_shapes = {"gate": (qwen.d_model, qwen.d_ff),
                  "down": (qwen.d_ff, qwen.d_model)}
     mm = {(sh, d): (randn(256, K, dtype=getattr(torch, d)),
@@ -1275,6 +1278,14 @@ def sgdrc_phase(torch, seed):
                     randn(K, N, dtype=getattr(torch, d), scale=K ** -0.5))
           for sh, (K, N) in mm_shapes.items()
           for d in ("bfloat16", "float32", "float16")}
+    # f16 at the gate projection's K less 2 (not a multiple of 8): the
+    # CUDA-core body with 4-byte copies
+    K, N = mm_shapes["gate"][0] - 2, mm_shapes["gate"][1]
+    f16 = torch.float16
+    mm_ragged = (randn(256, K, dtype=f16),
+                 randn(K, N, dtype=f16, scale=K ** -0.5),
+                 randn(2048, K, dtype=f16),
+                 randn(K, N, dtype=f16, scale=K ** -0.5))
     t0 = time.perf_counter()
     hm = coloring.gpu_hash_model("tesla-p40")
     arena = coloring.ColoredArena(SPT_ARENA_BYTES, hm.channel_of,
@@ -1310,6 +1321,7 @@ def sgdrc_phase(torch, seed):
         dual_flash[d] = (ops.flash_attention(*ls), ops.flash_attention(*be))
     mm_out = {key: ops.dual_tenant_matmul(*a, sm_be=0.3)
               for key, a in mm.items()}
+    ragged_out = ops.dual_tenant_matmul(*mm_ragged, sm_be=0.3)
     scattered = {t: ops.spt_scatter(xs[t], spts[t], n_arena) for t in xs}
     # one device arena holding both tenants (their pages are disjoint)
     be_page = torch.zeros(n_arena, dtype=torch.bool, device=dev)
@@ -1324,16 +1336,19 @@ def sgdrc_phase(torch, seed):
     for name in ("flash_attention", "dual_tenant_attention",
                  "dual_tenant_matmul", "spt_gather", "spt_scatter"):
         require(counts[name] > 0, f"{name} not launched: {counts}")
-    # every bf16 call of the drive takes the tensor-core body, every f32
-    # and f16 call the CUDA-core body
-    n_bf16 = {
-        "flash_attention": sum(c["dname"] == "bfloat16" for c in flash) + 2,
-        "dual_tenant_attention": 3,
-        "dual_tenant_matmul": sum(d == "bfloat16" for _, d in mm)}
-    for name, n in n_bf16.items():
+    # every bf16 and f16 call of the drive takes the tensor-core body
+    # (the matmul's at K and N multiples of 8), every f32 call and the
+    # ragged-K f16 matmul the CUDA-core body
+    half = ("bfloat16", "float16")
+    n_tc = {
+        "flash_attention": sum(c["dname"] in half for c in flash)
+        + 2 * sum(d in half for d in dual),
+        "dual_tenant_attention": 3 * sum(d in half for d in dual),
+        "dual_tenant_matmul": sum(d in half for _, d in mm)}
+    for name, n in n_tc.items():
         require(routes[name] == {"wgmma": n, "simt": counts[name] - n},
-                f"{name}: routes {routes[name]}, want {n} bf16 calls on "
-                "wgmma and the rest on simt")
+                f"{name}: routes {routes[name]}, want {n} bf16 and f16 "
+                "calls on wgmma and the rest (f32, ragged K) on simt")
 
     # -- checks against the plain versions --------------------------------
     results = {}
@@ -1412,6 +1427,17 @@ def sgdrc_phase(torch, seed):
         mm_err[sh, d] = max(errs)
         log(f"  dual_tenant_matmul {sh} {d}: vs plain max abs "
             f"{mm_err[sh, d]:.3e} (rtol {rtol}, atol {atol})")
+    rtol, atol = MATMUL_TOL["float16"]
+    K, errs = mm_ragged[0].shape[1], []
+    for o, w in zip(ragged_out, ref.ref_dual_tenant_matmul(*mm_ragged)):
+        errs.append((o.float() - w.float()).abs().max().item())
+        require(torch.allclose(o.float(), w.float(), rtol=rtol, atol=atol),
+                f"dual_tenant_matmul ragged K {K} float16: not within rtol "
+                f"{rtol} atol {atol} (max abs {errs[-1]})")
+    log(f"  dual_tenant_matmul gate K {K} float16: route="
+        f"{dtm.route(f16, K, mm_ragged[1].shape[1])}, vs plain max abs "
+        f"{max(errs):.3e} (rtol {rtol}, atol {atol})")
+    del ragged_out
     # a tenant's bits depend neither on sm_be nor on the other tenant: each
     # output is one sum over k in order, whatever runs beside it
     for (sh, d), (a_ls, b_ls, a_be, b_be) in mm.items():
@@ -4621,8 +4647,10 @@ def early_phases(torch, args, kres):
         return None
     log("== phase 7: SGDRC kernels (flash, dual-tenant attention and "
         "matmul, SPT gather/scatter)")
+    t_phase = time.perf_counter()
     sgdrc_counts, sgdrc_res = sgdrc_phase(torch, args.seed)
     kres.update(sgdrc_res)
+    log(f"  phase 7 wall {time.perf_counter() - t_phase:.1f}s")
 
     if args.until <= 7:
         return None

@@ -56,13 +56,12 @@ cudaError_t with_dtype(int dtype, F&& f) {
   }
 }
 
-// As with_dtype, for the CUDA-core bodies whose bf16 case runs on the
-// tensor cores instead: f32 and f16 only, bf16 is refused.
+// As with_dtype, for the tensor-core bodies: bf16 and f16 only.
 template <typename F>
-cudaError_t with_f32_or_f16(int dtype, F&& f) {
+cudaError_t with_bf16_or_f16(int dtype, F&& f) {
   switch (dtype) {
-    case 0:
-      return f(Tag<float>{});
+    case 1:
+      return f(Tag<__nv_bfloat16>{});
     case 2:
       return f(Tag<__half>{});
     default:

@@ -14,12 +14,13 @@
 // and runs the tile body of flash_attention.cu's route with causal = true,
 // no window, no softcap: the very code of flash_attention.cu, so each
 // tenant's output equals flash_attention's bit for bit and does not depend
-// on sm_be. The route (`wgmma`: bf16 on flash_wgmma.cuh's tensor-core body;
-// else flash_simt.cuh's CUDA-core body) fixes BQ, the block size and the
-// shared memory (flash::launch), and the wrapper schedules over the
-// route's BQ (sgdrc_flash_tile_rows). On the CUDA-core body query tile r %
-// nq counts from the last, so the units of a (b, h) start heaviest first,
-// as flash_attention.cu's blocks do, and the light ones fill the tail.
+// on sm_be. The route (`wgmma`: bf16 and f16 on flash_wgmma.cuh's
+// tensor-core body; else f32 on flash_simt.cuh's CUDA-core body) fixes BQ,
+// the block size and the shared memory (flash::launch), and the wrapper
+// schedules over the route's BQ (sgdrc_flash_tile_rows). On the CUDA-core
+// body query tile r % nq counts from the last, so the units of a (b, h)
+// start heaviest first, as flash_attention.cu's blocks do, and the light
+// ones fill the tail.
 //
 // What bounds it on the card: operations, as flash_attention (4 * D flops
 // per visible causal (query, key) pair, both tenants together).
@@ -72,7 +73,7 @@ __global__ void __launch_bounds__(kThreads, 1) dual_kernel(DualArgs a) {
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(wg::kThreads, 1) dual_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_ls,
     const __grid_constant__ CUtensorMap k_ls,
@@ -96,7 +97,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1) dual_wgmma_kernel(
     const int b = r / (H * nq), h = (r / nq) % H, qi = r % nq;
     const wg::Maps x{be ? &q_be : &q_ls, be ? &k_be : &k_ls,
                      be ? &v_be : &v_ls, be ? out_be : out_ls, S, H, Hkv};
-    wg::tile<D>(x, b, h, qi * wg::BQ, true, 0, 0.f, scale, smem, pipe);
+    wg::tile<T, D>(x, b, h, qi * wg::BQ, true, 0, 0.f, scale, smem, pipe);
   }
 }
 
@@ -104,8 +105,8 @@ __global__ void __launch_bounds__(wg::kThreads, 1) dual_wgmma_kernel(
 }  // namespace sgdrc
 
 // Query rows per work unit for head dim D on the route (`wgmma` 1: the
-// bf16 tensor-core body; 0: the CUDA-core body), 0 if D is not supported:
-// the wrapper builds the schedule over tiles of this height.
+// bf16 and f16 tensor-core body; 0: the CUDA-core body), 0 if D is not
+// supported: the wrapper builds the schedule over tiles of this height.
 extern "C" int sgdrc_flash_tile_rows(int D, int wgmma) {
   using namespace sgdrc::flash;
   int rows = 0;
@@ -129,57 +130,58 @@ extern "C" int sgdrc_dual_tenant_attention(
   const int* ord = static_cast<const int*>(order);
   int* tk = static_cast<int*>(ticket);
   if (wgmma) {
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(with_head_dim(D, [&](auto dim) {
-      constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<__nv_bfloat16, kD>(true);
-      // a tenant with no rows never runs a unit: it borrows the other's maps
-      const bool has_ls = B_ls > 0, has_be = B_be > 0;
-      const void* bases[6] = {has_ls ? q_ls : q_be, has_ls ? k_ls : k_be,
-                              has_ls ? v_ls : v_be, has_be ? q_be : q_ls,
-                              has_be ? k_be : k_ls, has_be ? v_be : v_ls};
-      const int batch[2] = {has_ls ? B_ls : B_be, has_be ? B_be : B_ls};
-      CUtensorMap maps[6];
-      for (int i = 0; i < 6; ++i) {
-        const bool is_q = i % 3 == 0;
-        cudaError_t err = wg::make_heads_map(
-            &maps[i], bases[i], batch[i / 3], S, is_q ? H : Hkv, kD,
-            is_q ? wg::BQ : wg::Tile<kD>::BK);
+    return static_cast<int>(sgdrc::with_bf16_or_f16(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      return with_head_dim(D, [&](auto dim) {
+        constexpr int kD = decltype(dim)::value;
+        constexpr Launch L = launch<T, kD>(true);
+        // a tenant with no rows never runs a unit: it borrows the other's
+        // maps
+        const bool has_ls = B_ls > 0, has_be = B_be > 0;
+        const void* bases[6] = {has_ls ? q_ls : q_be, has_ls ? k_ls : k_be,
+                                has_ls ? v_ls : v_be, has_be ? q_be : q_ls,
+                                has_be ? k_be : k_ls, has_be ? v_be : v_ls};
+        const int batch[2] = {has_ls ? B_ls : B_be, has_be ? B_be : B_ls};
+        CUtensorMap maps[6];
+        for (int i = 0; i < 6; ++i) {
+          const bool is_q = i % 3 == 0;
+          cudaError_t err = wg::make_heads_map(
+              &maps[i], sgdrc::hopper::map_type<T>(), bases[i], batch[i / 3],
+              S, is_q ? H : Hkv, kD, is_q ? wg::BQ : wg::Tile<kD>::BK);
+          if (err != cudaSuccess) return err;
+        }
+        auto kernel = dual_wgmma_kernel<T, kD>;
+        cudaError_t err = allow_smem(kernel, L.smem);
         if (err != cudaSuccess) return err;
-      }
-      auto kernel = dual_wgmma_kernel<kD>;
-      cudaError_t err = allow_smem(kernel, L.smem);
-      if (err != cudaSuccess) return err;
-      int blocks = 0;
-      err = sgdrc::hopper::resident_blocks(kernel, L.threads, L.smem, n_units,
-                                           &blocks);
-      if (err != cudaSuccess) return err;
-      kernel<<<blocks, L.threads, L.smem, st>>>(
-          maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], out_ls,
-          out_be, ord, tk, n_units, S, H, Hkv, scale);
-      return cudaGetLastError();
+        int blocks = 0;
+        err = sgdrc::hopper::resident_blocks(kernel, L.threads, L.smem,
+                                             n_units, &blocks);
+        if (err != cudaSuccess) return err;
+        kernel<<<blocks, L.threads, L.smem, st>>>(
+            maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], out_ls,
+            out_be, ord, tk, n_units, S, H, Hkv, scale);
+        return cudaGetLastError();
+      });
     }));
   }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   DualArgs a{{q_ls, k_ls, v_ls, out_ls, S, H, Hkv},
              {q_be, k_be, v_be, out_be, S, H, Hkv},
              ord,
              tk,
              n_units,
              scale};
-  return static_cast<int>(sgdrc::with_f32_or_f16(dtype, [&](auto tag) {
-    using T = typename decltype(tag)::type;
-    return with_head_dim(D, [&](auto dim) {
-      constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<T, kD>(false);
-      auto kernel = dual_kernel<T, kD>;
-      cudaError_t err = allow_smem(kernel, L.smem);
-      if (err != cudaSuccess) return err;
-      int blocks = 0;
-      err = sgdrc::hopper::resident_blocks(kernel, L.threads, L.smem, n_units,
-                                           &blocks);
-      if (err != cudaSuccess) return err;
-      kernel<<<blocks, L.threads, L.smem, st>>>(a);
-      return cudaGetLastError();
-    });
+  return static_cast<int>(with_head_dim(D, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    constexpr Launch L = launch<float, kD>(false);
+    auto kernel = dual_kernel<float, kD>;
+    cudaError_t err = allow_smem(kernel, L.smem);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = sgdrc::hopper::resident_blocks(kernel, L.threads, L.smem, n_units,
+                                         &blocks);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, L.threads, L.smem, st>>>(a);
+    return cudaGetLastError();
   }));
 }

@@ -19,10 +19,13 @@
 // widths chip_smoke.py runs, some hundreds of flops per byte moved, above
 // the H100's 295 bf16 flops a byte). Two routes, picked by the wrapper
 // (dual_tenant_matmul.py::route) before the launch:
-//   wgmma (bf16, K and N multiples of 8, so every TMA row stride is a
-//   multiple of 16 bytes): tensor cores, warp-specialised. 384 threads:
-//   warpgroup 0 is the producer (setmaxnreg down to 40 registers), whose
-//   thread 0 takes the units' tickets and streams A tiles [128, 64] and B
+//   wgmma (bf16 and f16, K and N multiples of 8, so every TMA row stride is
+//   a multiple of 16 bytes): tensor cores, warp-specialised, one body for
+//   both types (T changes the instruction's type, the tensor maps' element
+//   type and the epilogue's rounding; bytes and tiles are the same).
+//   384 threads: warpgroup 0 is the producer (setmaxnreg down to 40
+//   registers), whose thread 0 takes the units' tickets and streams A
+//   tiles [128, 64] and B
 //   tiles [64, 4 x 64] by TMA, 128-byte swizzle, zero-filled past M, N and
 //   K, into a ring of 4 stages (48 KB each) with full and empty mbarriers.
 //   Warpgroups 1 and 2 (setmaxnreg up to 232) each own 64 rows of a
@@ -36,9 +39,10 @@
 //   ring never drains between units: a unit's loads start in ticket order,
 //   at most one unit ahead of its products. 193 KB of shared memory: one
 //   block per SM, a persistent grid of min(units, SMs) blocks. The
-//   epilogue rounds each output once to bf16 and stores it with bounds
-//   checks at the ragged M and N edges.
-//   simt (f32, f16, and bf16 with K or N not a multiple of 8): f32 FMAs on
+//   epilogue rounds each output once to T (round to nearest) and stores it
+//   with bounds checks at the ragged M and N edges (an f16 output beyond
+//   65504 rounds to inf, as the plain version's does).
+//   simt (f32, and f16 or bf16 with K or N not a multiple of 8): f32 FMAs on
 //   CUDA cores (f32 keeps the reference's 1e-5 tolerance, which TF32 would
 //   break; 67 TFLOP/s on an H100). Each SM scheduler issues one
 //   instruction a cycle and does one warp's FMA a cycle, so every other
@@ -432,6 +436,7 @@ constexpr int BAR_OFF = STAGES * STAGE_BYTES;
 // slot (2 slots), then the 2 slots; + 1024 for alignment
 constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 4) + 8 + 1024;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) dual_gemm_wgmma(
     const __grid_constant__ CUtensorMap a_ls,
     const __grid_constant__ CUtensorMap b_ls,
@@ -523,7 +528,7 @@ __global__ void __launch_bounds__(kThreads, 1) dual_gemm_wgmma(
         for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
           for (int nh = 0; nh < 2; ++nh)
-            wgmma_ss_n128<1>(
+            wgmma_ss_n128<1, T>(
                 acc + 64 * nh,
                 desc_sw128(a_addr + wgi * 64 * 128 + kk * 32, 16, 1024),
                 desc_sw128(b_addr + nh * 2 * BK * 128 + kk * 16 * 128,
@@ -543,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, 1) dual_gemm_wgmma(
       if (lane == 0) mbar_arrive(&empty[(g + k_tiles - 1) % STAGES]);
       g += k_tiles;
 
-      __nv_bfloat16* C = static_cast<__nv_bfloat16*>(be ? out_be : out_ls);
+      T* C = static_cast<T*>(be ? out_be : out_ls);
       const int r0 = m0 + 64 * wgi + 16 * (warp % 4) + lane / 4;
       const int cq = n0 + 2 * (lane % 4);
 #pragma unroll
@@ -554,22 +559,23 @@ __global__ void __launch_bounds__(kThreads, 1) dual_gemm_wgmma(
         for (int j = 0; j < NA / 4; ++j) {
           const int gn = cq + 8 * j;
           if (gn < N)
-            *reinterpret_cast<__nv_bfloat162*>(C + (int64_t)gm * N + gn) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * r],
-                                      acc[4 * j + 2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(C + (int64_t)gm * N + gn) =
+                pack2_rn<T>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
         }
       }
     }
   }
 }
 
-// The tensor map of a row-major [rows, cols] bf16 matrix, box {64, box_rows}.
-inline cudaError_t make_matrix_map(CUtensorMap* map, const void* base,
-                                   int rows, int cols, int box_rows) {
+// The tensor map of a row-major [rows, cols] matrix of element type `type`
+// (bf16 or f16, hopper::map_type), box {64, box_rows}.
+inline cudaError_t make_matrix_map(CUtensorMap* map, CUtensorMapDataType type,
+                                   const void* base, int rows, int cols,
+                                   int box_rows) {
   const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
   const uint64_t strides[1] = {(uint64_t)cols * 2};
   const uint32_t box[2] = {64, (uint32_t)box_rows};
-  return make_map(map, base, 2, dims, strides, box);
+  return make_map(map, type, base, 2, dims, strides, box);
 }
 
 }  // namespace wg
@@ -580,8 +586,8 @@ inline cudaError_t make_matrix_map(CUtensorMap* map, const void* base,
 // builds the schedule over ceil(M / this) tile rows per tenant.
 extern "C" int sgdrc_matmul_tile(void) { return sgdrc::gemm::BM; }
 
-// `wgmma` 1 takes the tensor-core route (bf16 only, K and N multiples of
-// 8, 16-byte aligned operands), 0 the CUDA-core route, whose copies are
+// `wgmma` 1 takes the tensor-core route (bf16 or f16, K and N multiples
+// of 8, 16-byte aligned operands), 0 the CUDA-core route, whose copies are
 // `copy` bytes wide (16, 4, or 2 for f16 and bf16): K and N times the
 // element size and every base must be multiples of it.
 extern "C" int sgdrc_dual_tenant_matmul(const void* a_ls, const void* b_ls,
@@ -597,36 +603,40 @@ extern "C" int sgdrc_dual_tenant_matmul(const void* a_ls, const void* b_ls,
   cudaError_t err = cudaSuccess;
   int blocks = 0;
   if (wgmma) {
-    if (dtype != 1 || K <= 0 || K % 8 != 0 || N % 8 != 0)
+    if (K <= 0 || K % 8 != 0 || N % 8 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    // a tenant with no rows never runs a unit: it borrows the other's maps
-    const bool has_ls = M_ls > 0, has_be = M_be > 0;
-    CUtensorMap maps[4];
-    const void* as[2] = {has_ls ? a_ls : a_be, has_be ? a_be : a_ls};
-    const void* bs[2] = {has_ls ? b_ls : b_be, has_be ? b_be : b_ls};
-    const int ms[2] = {has_ls ? M_ls : M_be, has_be ? M_be : M_ls};
-    for (int i = 0; i < 2; ++i) {
-      if ((err = wg::make_matrix_map(&maps[2 * i], as[i], ms[i], K, BM)) !=
-              cudaSuccess ||
-          (err = wg::make_matrix_map(&maps[2 * i + 1], bs[i], K, N,
-                                     wg::BK)) != cudaSuccess)
-        return static_cast<int>(err);
-    }
-    auto kernel = wg::dual_gemm_wgmma;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               wg::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // one block per SM: the shared memory holds one ring
-    err = sgdrc::hopper::resident_blocks(
-        kernel, wg::kThreads, wg::SMEM,
-        n_order * ((N + wg::TBN - 1) / wg::TBN), &blocks);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<blocks, wg::kThreads, wg::SMEM, st>>>(
-        maps[0], maps[1], maps[2], maps[3], out_ls, out_be, M_ls, M_be,
-        static_cast<const int*>(order), static_cast<int*>(ticket), n_order,
-        K, N);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(sgdrc::with_bf16_or_f16(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      const CUtensorMapDataType type = sgdrc::hopper::map_type<T>();
+      // a tenant with no rows never runs a unit: it borrows the other's maps
+      const bool has_ls = M_ls > 0, has_be = M_be > 0;
+      CUtensorMap maps[4];
+      const void* as[2] = {has_ls ? a_ls : a_be, has_be ? a_be : a_ls};
+      const void* bs[2] = {has_ls ? b_ls : b_be, has_be ? b_be : b_ls};
+      const int ms[2] = {has_ls ? M_ls : M_be, has_be ? M_be : M_ls};
+      for (int i = 0; i < 2; ++i) {
+        if ((err = wg::make_matrix_map(&maps[2 * i], type, as[i], ms[i], K,
+                                       BM)) != cudaSuccess ||
+            (err = wg::make_matrix_map(&maps[2 * i + 1], type, bs[i], K, N,
+                                       wg::BK)) != cudaSuccess)
+          return err;
+      }
+      auto kernel = wg::dual_gemm_wgmma<T>;
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 wg::SMEM);
+      if (err != cudaSuccess) return err;
+      // one block per SM: the shared memory holds one ring
+      err = sgdrc::hopper::resident_blocks(
+          kernel, wg::kThreads, wg::SMEM,
+          n_order * ((N + wg::TBN - 1) / wg::TBN), &blocks);
+      if (err != cudaSuccess) return err;
+      kernel<<<blocks, wg::kThreads, wg::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], out_ls, out_be, M_ls, M_be,
+          static_cast<const int*>(order), static_cast<int*>(ticket), n_order,
+          K, N);
+      return cudaGetLastError();
+    }));
   }
   const int item = dtype == 0 ? 4 : 2;
   const void* ptrs[6] = {a_ls, b_ls, out_ls, a_be, b_be, out_be};

@@ -2,13 +2,14 @@
 // Replaces src/repro/kernels/flash_attention.py::flash_attention.
 //
 // Two routes, picked by the wrapper (flash_attention.py::route) before the
-// launch and passed as `wgmma`: bf16 runs flash_wgmma.cuh's tensor-core
-// body (TMA, wgmma, 128-row query tiles); f32 and f16 run flash_simt.cuh's
-// CUDA-core body (64-row query tiles, register-tiled f32 FMAs fed by bulk
-// copies), which refuses bf16. Each header says what its tile computes,
-// what bounds it and why dual_tenant_attention.cu gives the same bits. Both
-// copy q, k and v 16 bytes at a time, so the tensors start on 16-byte
-// boundaries (the wrapper's aligned16).
+// launch and passed as `wgmma`: bf16 and f16 run flash_wgmma.cuh's
+// tensor-core body (TMA, wgmma, 128-row query tiles); f32 runs
+// flash_simt.cuh's CUDA-core body (64-row query tiles, register-tiled f32
+// FMAs fed by bulk copies), which refuses bf16 and f16. Each
+// header says what its tile computes, what bounds it and why
+// dual_tenant_attention.cu gives the same bits. Both copy q, k and v 16
+// bytes at a time, so the tensors start on 16-byte boundaries (the
+// wrapper's aligned16).
 //
 // Grid: (H * B, ceil(S / BQ)), one query tile per block; the TPU kernel's
 // sequential kv grid axis is the key loop inside the tile. Blocks start in
@@ -31,7 +32,7 @@ __global__ void __launch_bounds__(kThreads, 1)
              window, softcap, scale, simt_smem, pipe);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -44,7 +45,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   const wg::Maps a{&q_map, &k_map, &v_map, out, S, H, Hkv};
   wg::Pipe pipe;
   const int qi = gridDim.y - 1 - blockIdx.y;
-  wg::tile<D>(a, blockIdx.x / H, blockIdx.x % H, qi * wg::BQ, causal != 0,
+  wg::tile<T, D>(a, blockIdx.x / H, blockIdx.x % H, qi * wg::BQ, causal != 0,
               window, softcap, scale, smem, pipe);
 }
 
@@ -62,41 +63,40 @@ extern "C" int sgdrc_flash_attention(const void* q, const void* k,
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wgmma) {
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(with_head_dim(D, [&](auto dim) {
-      constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<__nv_bfloat16, kD>(true);
-      CUtensorMap maps[3];
-      const void* bases[3] = {q, k, v};
-      const int heads[3] = {H, Hkv, Hkv};
-      for (int i = 0; i < 3; ++i) {
-        cudaError_t err = wg::make_heads_map(&maps[i], bases[i], B, S,
-                                             heads[i], kD,
-                                             i == 0 ? wg::BQ
-                                                    : wg::Tile<kD>::BK);
+    return static_cast<int>(sgdrc::with_bf16_or_f16(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      return with_head_dim(D, [&](auto dim) {
+        constexpr int kD = decltype(dim)::value;
+        constexpr Launch L = launch<T, kD>(true);
+        CUtensorMap maps[3];
+        const void* bases[3] = {q, k, v};
+        const int heads[3] = {H, Hkv, Hkv};
+        for (int i = 0; i < 3; ++i) {
+          cudaError_t err = wg::make_heads_map(
+              &maps[i], sgdrc::hopper::map_type<T>(), bases[i], B, S,
+              heads[i], kD, i == 0 ? wg::BQ : wg::Tile<kD>::BK);
+          if (err != cudaSuccess) return err;
+        }
+        cudaError_t err = allow_smem(flash_wgmma_kernel<T, kD>, L.smem);
         if (err != cudaSuccess) return err;
-      }
-      cudaError_t err = allow_smem(flash_wgmma_kernel<kD>, L.smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid(H * B, (S + L.rows - 1) / L.rows);
-      flash_wgmma_kernel<kD><<<grid, L.threads, L.smem, st>>>(
-          maps[0], maps[1], maps[2], out, S, H, Hkv, causal, window, scale,
-          softcap);
-      return cudaGetLastError();
+        const dim3 grid(H * B, (S + L.rows - 1) / L.rows);
+        flash_wgmma_kernel<T, kD><<<grid, L.threads, L.smem, st>>>(
+            maps[0], maps[1], maps[2], out, S, H, Hkv, causal, window, scale,
+            softcap);
+        return cudaGetLastError();
+      });
     }));
   }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Heads a{q, k, v, out, S, H, Hkv};
-  return static_cast<int>(sgdrc::with_f32_or_f16(dtype, [&](auto tag) {
-    using T = typename decltype(tag)::type;
-    return with_head_dim(D, [&](auto dim) {
-      constexpr int kD = decltype(dim)::value;
-      constexpr Launch L = launch<T, kD>(false);
-      cudaError_t err = allow_smem(flash_kernel<T, kD>, L.smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid(H * B, (S + L.rows - 1) / L.rows);
-      flash_kernel<T, kD><<<grid, L.threads, L.smem, st>>>(a, causal, window,
-                                                           scale, softcap);
-      return cudaGetLastError();
-    });
+  return static_cast<int>(with_head_dim(D, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    constexpr Launch L = launch<float, kD>(false);
+    cudaError_t err = allow_smem(flash_kernel<float, kD>, L.smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(H * B, (S + L.rows - 1) / L.rows);
+    flash_kernel<float, kD><<<grid, L.threads, L.smem, st>>>(
+        a, causal, window, scale, softcap);
+    return cudaGetLastError();
   }));
 }

@@ -1,8 +1,9 @@
 // The CUDA-core tile body of GQA self-attention: the "simt" route of
-// flash_attention.cu and dual_tenant_attention.cu, for f32 and f16 at head
-// dims 64, 128 and 256 (bf16 takes the tensor-core body of flash_wgmma.cuh,
-// which computes the same function). f32 stays on CUDA cores because TF32
-// would break its 2e-5 tolerance.
+// flash_attention.cu and dual_tenant_attention.cu, for f32 at head dims 64,
+// 128 and 256 (bf16 and f16 take the tensor-core body of flash_wgmma.cuh,
+// which computes the same function; the element type stays a template
+// argument, instantiated for f32 only). f32 stays on CUDA cores because
+// TF32 would break its 2e-5 tolerance.
 //
 // Replaces, with flash_wgmma.cuh, the Pallas online-softmax bodies of
 //   src/repro/kernels/flash_attention.py       (_kernel, flash_attention)
@@ -63,7 +64,7 @@
 //   NaN would not be). An mbarrier wait that never completes traps
 //   (hopper::mbar_wait) instead of hanging the card.
 // Shared memory: q (f32) + K + V + P: 195 KB at f32 D 128, 210 KB at f32 D
-// 256, 115 KB at f32 D 64, 131 KB at f16 D 128; one block of 8 warps an SM
+// 256, 115 KB at f32 D 64; one block of 8 warps an SM
 // (ptxas: 168 registers at f32 D 128, 253 at D 256, no spills).
 //
 // Bits. dual_tenant_attention must equal flash_attention bit for bit, so

@@ -1,6 +1,9 @@
-// The bf16 tile body of GQA self-attention on Hopper tensor cores, shared by
-// flash_attention.cu and dual_tenant_attention.cu (the "wgmma" route; f32
-// and f16 take flash_simt.cuh's CUDA-core body, the "simt" route).
+// The bf16 and f16 tile body of GQA self-attention on Hopper tensor cores,
+// shared by flash_attention.cu and dual_tenant_attention.cu (the "wgmma"
+// route; f32 takes flash_simt.cuh's CUDA-core body, the "simt" route). The
+// element type T (__nv_bfloat16 or __half) changes the instruction's type,
+// the tensor maps' element type, P's rounding and the output's; bytes,
+// tiles, ring and schedule are the same for both.
 //
 // What it computes is flash_simt.cuh's tile, for a query tile of BQ = 128
 // rows: GQA, causal or not, local window, logit softcap, the scale D^-0.5
@@ -23,11 +26,15 @@
 //   outside the wgmma (scale, softcap, mask, max, exp, sum, rescale, final
 //   divide) is an explicit round-to-nearest intrinsic, so two kernels that
 //   inline this function produce the same bits.
-//   O += P V: P rounded once to bf16 (__float2bfloat16_rn) into the register
-//   A operand of wgmma m64nDk16 (two n128 halves at D 256); V is the
-//   MN-major B operand straight from the TMA tile (trans-b), never copied.
+//   O += P V: P rounded once to T (round to nearest: __floats2bfloat162_rn
+//   or __floats2half2_rn) into the register A operand of wgmma m64nDk16
+//   (two n128 halves at D 256); V is the MN-major B operand straight from
+//   the TMA tile (trans-b), never copied.
 //   Tiles that no mask touches skip the mask: masking them changes no bit.
-// Tile traits (shared memory = Q + STAGES * (K + V), all bf16):
+//   f16 has less range than bf16: a P below 2^-14 keeps fewer bits and one
+//   below 2^-25 rounds to 0 (bf16 keeps both), each under 2^-14 of the
+//   row's largest P, which is 1.
+// Tile traits (shared memory = Q + STAGES * (K + V), 2 bytes an element):
 //   D 64:  BK 128, 2 stages,  80 KB; S 64 + O 32 accumulator registers
 //   D 128: BK 128, 2 stages, 160 KB; S 64 + O 64
 //   D 256: BK  64, 2 stages, 192 KB; S 32 + O 128 (BK 64 keeps S and P in
@@ -96,21 +103,21 @@ __device__ __forceinline__ void init(uint8_t* smem) {
   __syncthreads();
 }
 
-// One query tile [q0, q0 + BQ) of head h of batch row b. `smem` is
-// 1024-byte aligned and initialised by init<D>. The caller guarantees that
-// the block's previous tile is done with shared memory (a __syncthreads
-// after its last use).
-template <int D>
+// One query tile [q0, q0 + BQ) of head h of batch row b, q, k, v and out
+// of element type T. `smem` is 1024-byte aligned and initialised by
+// init<D>. The caller guarantees that the block's previous tile is done
+// with shared memory (a __syncthreads after its last use).
+template <typename T, int D>
 __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
                                      bool causal, int window, float softcap,
                                      float scale, uint8_t* smem, Pipe& pipe) {
-  using T = Tile<D>;
-  constexpr int BK = T::BK, STAGES = T::STAGES, CH = T::CH;
+  using L = Tile<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES, CH = L::CH;
   constexpr int NS = BK / 2;               // score registers a thread
   constexpr int NO = D / 2;                // output registers a thread
   uint8_t* q_s = smem;
-  uint8_t* kv_s = smem + T::Q_BYTES;       // stage s: K at s*STAGE, V after
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint8_t* kv_s = smem + L::Q_BYTES;       // stage s: K at s*STAGE, V after
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* q_full = &bars[0];
   uint64_t* full = &bars[1];
   uint64_t* empty = &bars[1 + STAGES];
@@ -128,18 +135,18 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
     const uint32_t g = pipe.kv + t;
     const int st = g % STAGES;
     if (g >= STAGES) mbar_wait(&empty[st], ((g / STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[st], T::STAGE_BYTES);
-    uint8_t* k_dst = kv_s + st * T::STAGE_BYTES;
+    mbar_expect_tx(&full[st], L::STAGE_BYTES);
+    uint8_t* k_dst = kv_s + st * L::STAGE_BYTES;
     const int k0 = k_first + t * BK;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       tma_load_4d(k_dst + c * BK * 128, a.k, &full[st], c * 64, hk, k0, b);
-      tma_load_4d(k_dst + T::KV_BYTES + c * BK * 128, a.v, &full[st], c * 64,
+      tma_load_4d(k_dst + L::KV_BYTES + c * BK * 128, a.v, &full[st], c * 64,
                   hk, k0, b);
     }
   };
   if (tid == 0) {
-    mbar_expect_tx(q_full, T::Q_BYTES);
+    mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
     for (int c = 0; c < CH; ++c)
       tma_load_4d(q_s + c * BQ * 128, a.q, q_full, c * 64, h, q0, b);
@@ -163,8 +170,8 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
     const int k0 = k_first + t * BK;
     const uint32_t g = pipe.kv + t;
     const int st = g % STAGES;
-    const uint32_t k_addr = smem_u32(kv_s + st * T::STAGE_BYTES);
-    const uint32_t v_addr = k_addr + T::KV_BYTES;
+    const uint32_t k_addr = smem_u32(kv_s + st * L::STAGE_BYTES);
+    const uint32_t v_addr = k_addr + L::KV_BYTES;
     mbar_wait(&full[st], (g / STAGES) & 1);
 
     // S = Q K^T over D in k16 steps (the first overwrites s: scale-d 0)
@@ -179,9 +186,9 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
       const uint64_t db =
           desc_sw128(k_addr + (kd / 4) * BK * 128 + off, 16, 1024);
       if constexpr (BK == 128)
-        wgmma_ss_n128<0>(s, da, db, kd > 0);
+        wgmma_ss_n128<0, T>(s, da, db, kd > 0);
       else
-        wgmma_ss_n64<0>(s, da, db, kd > 0);
+        wgmma_ss_n64<0, T>(s, da, db, kd > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -239,10 +246,10 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const float* lo = s + 8 * kk;
-      pf[kk][0] = pack_bf16(lo[0], lo[1]);
-      pf[kk][1] = pack_bf16(lo[2], lo[3]);
-      pf[kk][2] = pack_bf16(lo[4], lo[5]);
-      pf[kk][3] = pack_bf16(lo[6], lo[7]);
+      pf[kk][0] = pack2_rn<T>(lo[0], lo[1]);
+      pf[kk][1] = pack2_rn<T>(lo[2], lo[3]);
+      pf[kk][2] = pack2_rn<T>(lo[4], lo[5]);
+      pf[kk][3] = pack2_rn<T>(lo[6], lo[7]);
     }
 
     // O += P V over the tile's keys in k16 steps
@@ -252,12 +259,13 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t vk = v_addr + kk * 16 * 128;
       if constexpr (D == 64) {
-        wgmma_rs_n64<1>(o, pf[kk], desc_sw128(vk, BK * 128, 1024));
+        wgmma_rs_n64<1, T>(o, pf[kk], desc_sw128(vk, BK * 128, 1024));
       } else {
 #pragma unroll
         for (int nh = 0; nh < D / 128; ++nh)
-          wgmma_rs_n128<1>(o + 64 * nh, pf[kk],
-                           desc_sw128(vk + nh * 2 * BK * 128, BK * 128, 1024));
+          wgmma_rs_n128<1, T>(o + 64 * nh, pf[kk],
+                              desc_sw128(vk + nh * 2 * BK * 128, BK * 128,
+                                         1024));
       }
     }
     wgmma_commit();
@@ -272,9 +280,8 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
   pipe.kv += n_tiles;
   pipe.units += 1;
 
-  // out = acc / max(l, 1e-30), rounded once to bf16
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) +
-                      ((int64_t)b * S * a.H + h) * D;
+  // out = acc / max(l, 1e-30), rounded once to T
+  T* ob = static_cast<T*>(a.out) + ((int64_t)b * S * a.H + h) * D;
   const int64_t row = (int64_t)a.H * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -284,23 +291,23 @@ __device__ __forceinline__ void tile(const Maps& a, int b, int h, int q0,
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       const int i = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(ob + qp * row + 8 * j + cq) =
-          __floats2bfloat162_rn(__fdiv_rn(o[i], den),
-                                __fdiv_rn(o[i + 1], den));
+      *reinterpret_cast<uint32_t*>(ob + qp * row + 8 * j + cq) =
+          pack2_rn<T>(__fdiv_rn(o[i], den), __fdiv_rn(o[i + 1], den));
     }
   }
 }
 
-// The tensor map of one of q, k, v: [B, S, Hx, D] bf16, boxes {64, 1, rows,
-// 1}.
-inline cudaError_t make_heads_map(CUtensorMap* map, const void* base, int B,
-                                  int S, int Hx, int D, int rows) {
+// The tensor map of one of q, k, v: [B, S, Hx, D] of element type `type`
+// (bf16 or f16, hopper::map_type), boxes {64, 1, rows, 1}.
+inline cudaError_t make_heads_map(CUtensorMap* map, CUtensorMapDataType type,
+                                  const void* base, int B, int S, int Hx,
+                                  int D, int rows) {
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)Hx, (uint64_t)S,
                             (uint64_t)B};
   const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)Hx * D * 2,
                                (uint64_t)S * Hx * D * 2};
   const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return hopper::make_map(map, base, 4, dims, strides, box);
+  return hopper::make_map(map, type, base, 4, dims, strides, box);
 }
 
 }  // namespace wg

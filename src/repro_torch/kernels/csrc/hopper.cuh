@@ -2,12 +2,16 @@
 // prefill_wgmma.cuh, dual_tenant_matmul.cu; decode_attention.cu takes its
 // cp.async from here), written as inline PTX for sm_90a: mbarriers, TMA
 // tile loads, 16-byte cp.async into swizzled tiles, moving registers
-// between warpgroups, wgmma shared-memory descriptors and the bf16 wgmma
-// shapes the kernels use, and the host-side encoding of TMA tensor maps.
+// between warpgroups, wgmma shared-memory descriptors and the wgmma shapes
+// the kernels use, for bf16 or f16 operands (the element type T, a template
+// argument that defaults to bf16), and the host-side encoding of TMA tensor
+// maps.
 //
 // Shared-memory operands are 128-byte swizzled tiles as TMA writes them
-// with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), 8 rows to
-// a 1024-byte swizzle atom, every tile 1024-byte aligned.
+// with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 16-bit elements (128 bytes),
+// 8 rows to a 1024-byte swizzle atom, every tile 1024-byte aligned. bf16
+// and f16 share every byte offset, so only the instruction's type and the
+// tensor map's element type differ between them.
 //   K-major operand (the reduction axis contiguous: A of a GEMM, Q, K):
 //     rows of the M/N axis 128 bytes apart, LBO unused, SBO = 1024 (the
 //     next 8 rows); a k16 step inside a 64-wide chunk adds 32 bytes.
@@ -19,10 +23,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace sgdrc {
 namespace hopper {
@@ -225,81 +231,120 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// bf16 x bf16 -> f32 shapes; TransB 1 reads B MN-major.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two f32 values rounded once to T (round to nearest even), lo in the low
+// half: a register A operand's word, or two adjacent outputs.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2_rn(float lo, float hi) {
+  static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>,
+                "wgmma operands are bf16 or f16");
+  if constexpr (std::is_same_v<T, __half>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
+// The wgmma shapes, T x T -> f32 for T bf16 or f16; TransB 1 reads B
+// MN-major. Each is one asm statement written once (the macros below) and
+// instantiated with the type's PTX name, so bf16 emits the instruction it
+// always has.
+#define SGDRC_ACC32 \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SGDRC_ACC64 \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SGDRC_WGMMA_SS_N64(AB)                                              \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"     \
+      : SGDRC_ACC32                                                         \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB))
+#define SGDRC_WGMMA_RS_N64(AB)                                              \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : SGDRC_ACC32                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),         \
+        "n"(TransB))
+#define SGDRC_WGMMA_SS_N128(AB)                                             \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"     \
+      : SGDRC_ACC64                                                         \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB))
+#define SGDRC_WGMMA_RS_N128(AB)                                             \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+      : SGDRC_ACC64                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),         \
+        "n"(TransB))
+
 // d[0:32] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory.
-template <int TransB>
+template <int TransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+  if constexpr (std::is_same_v<T, __half>)
+    SGDRC_WGMMA_SS_N64("f16");
+  else
+    SGDRC_WGMMA_SS_N64("bf16");
 }
 
 // d[0:32] += A[64 x 16] . B[16 x 64], A in registers (a[4] per thread,
 // the layout of an m64 accumulator fragment), B in shared memory.
-template <int TransB>
+template <int TransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TransB));
+  if constexpr (std::is_same_v<T, __half>)
+    SGDRC_WGMMA_RS_N64("f16");
+  else
+    SGDRC_WGMMA_RS_N64("bf16");
 }
 
 // d[0:64] (+)= A[64 x 16] . B[16 x 128], A and B in shared memory.
-template <int TransB>
+template <int TransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+                                              uint64_t db, int scale_d) {
+  if constexpr (std::is_same_v<T, __half>)
+    SGDRC_WGMMA_SS_N128("f16");
+  else
+    SGDRC_WGMMA_SS_N128("bf16");
 }
 
 // d[0:64] += A[64 x 16] . B[16 x 128], A in registers (a[4] per thread,
 // the layout of an m64 accumulator fragment), B in shared memory.
-template <int TransB>
+template <int TransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TransB));
+                                              uint64_t db) {
+  if constexpr (std::is_same_v<T, __half>)
+    SGDRC_WGMMA_RS_N128("f16");
+  else
+    SGDRC_WGMMA_RS_N128("bf16");
 }
 
+#undef SGDRC_WGMMA_SS_N64
+#undef SGDRC_WGMMA_RS_N64
+#undef SGDRC_WGMMA_SS_N128
+#undef SGDRC_WGMMA_RS_N128
+#undef SGDRC_ACC32
+#undef SGDRC_ACC64
 
 // -- host: TMA tensor maps -------------------------------------------------
 
@@ -325,12 +370,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle over `rank` dims (innermost
-// first; strides in bytes of dims 1.., each a multiple of 16), box `box`.
+// The tensor-map element type of a wgmma operand type.
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>,
+                "tensor maps of bf16 or f16");
+  return std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A tensor map of 16-bit elements of type `type` (map_type<T>(): BFLOAT16
+// or FLOAT16) with 128-byte swizzle over `rank` dims (innermost first;
+// strides in bytes of dims 1.., each a multiple of 16), box `box`.
 // Zero-fills what a box reads past the tensor.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
-                            const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(base) & 15) != 0)
@@ -343,7 +398,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  const CUresult r = fn(map, type, rank,
                         const_cast<void*>(base), d, s, b, e,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

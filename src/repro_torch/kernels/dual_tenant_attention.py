@@ -12,9 +12,9 @@ Work units are (tenant, b, h, query tile) in the order of
 :func:`repro_torch.kernels.dual_tenant_matmul._schedule` (``sm_be`` and
 ``round_tiles`` as in the reference), over the kernel's own query tile,
 which is also ``flash_attention``'s on the same route
-(:func:`repro_torch.kernels.flash_attention.route`: bf16 runs the
-tensor-core body with 128-row tiles, f32 and f16 the CUDA-core body with
-64-row tiles, a (b, h)'s last tile first), so
+(:func:`repro_torch.kernels.flash_attention.route`: bf16 and f16 run the
+tensor-core body with 128-row tiles, f32 the CUDA-core body with 64-row
+tiles, a (b, h)'s last tile first), so
 ``block_q`` and ``block_k`` are kept for the signature only. The wrapper
 uploads the order as int32 (owner, row) pairs, cached per shape and quota;
 a persistent grid takes units from an atomic ticket in that order. Every unit runs the very tile code of

@@ -16,12 +16,12 @@ them.
 What bounds it on the card is operations (2 * M * K * N). The kernel is a
 tiled GEMM written out in CUDA, not ``torch.matmul``: the product is the
 work the TPU kernel's own body does. :func:`route` picks its body before
-the launch: ``"wgmma"`` (tensor cores, TMA-fed) for bf16 whose K and N are
-multiples of 8, so that every row stride TMA reads is a multiple of 16
-bytes; ``"simt"`` (f32 FMAs on CUDA cores) for f32, f16, and bf16 of any
-other K or N. A launch that fails raises; nothing retries on the other
-route. :func:`copy_width` picks how wide the ``"simt"`` body's copies are,
-also before the launch.
+the launch: ``"wgmma"`` (tensor cores, TMA-fed, f32 accumulation) for bf16
+and f16 whose K and N are multiples of 8, so that every row stride TMA
+reads is a multiple of 16 bytes; ``"simt"`` (f32 FMAs on CUDA cores) for
+f32, and bf16 and f16 of any other K or N. A launch that fails raises;
+nothing retries on the other route. :func:`copy_width` picks how wide the
+``"simt"`` body's copies are, also before the launch.
 
 CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain version. The wrapper counts its launches in
@@ -38,9 +38,10 @@ from ._build import (DTYPE_CODES, ROUTES, aligned16, check_cuda,
                      check_launch, count_launch, entry, stream_of)
 
 def route(dtype, K: int, N: int) -> str:
-    """The GEMM body a launch takes: ``"wgmma"`` for bf16 with K > 0 and K
-    and N multiples of 8, ``"simt"`` otherwise."""
-    ok = dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+    """The GEMM body a launch takes: ``"wgmma"`` for bf16 and f16 with K > 0
+    and K and N multiples of 8, ``"simt"`` otherwise."""
+    ok = dtype in (torch.bfloat16, torch.float16) and K > 0 and K % 8 == 0 \
+        and N % 8 == 0
     return "wgmma" if ok else "simt"
 
 

@@ -12,12 +12,13 @@ What bounds it on the card is operations: 4 * D flops for each visible
 query tile on chip, stream key tiles past it with an f32 online softmax,
 and visit only the key tiles between the tile's first window start and its
 causal diagonal. :func:`route` picks the body before the launch:
-``"wgmma"`` for bf16 (``csrc/flash_wgmma.cuh``: TMA loads, both products on
-the tensor cores with f32 accumulation), ``"simt"`` for f32 and f16
-(``csrc/flash_simt.cuh``: register-tiled f32 FMAs on CUDA cores fed by bulk
-copies; TF32 would break the f32 tolerance). A launch that fails raises;
-nothing retries on the other route. Both bodies copy 16 bytes at a time, so
-q, k and v that do not start on a 16-byte boundary are copied first
+``"wgmma"`` for bf16 and f16 (``csrc/flash_wgmma.cuh``: TMA loads, both
+products on the tensor cores with f32 accumulation, P rounded once to the
+input type for P.V), ``"simt"`` for f32 (``csrc/flash_simt.cuh``:
+register-tiled f32 FMAs on CUDA cores fed by bulk copies; TF32 would break
+the f32 tolerance). A launch that fails raises; nothing retries on the
+other route. Both bodies copy 16 bytes at a time, so q, k and v that do
+not start on a 16-byte boundary are copied first
 (``aligned16``). The tiles are the kernel's own, by route and head dim (64,
 128 or 256), so ``block_q`` and ``block_k`` are kept for the reference's
 signature only, and S need not divide by them.
@@ -38,10 +39,10 @@ HEAD_DIMS = (64, 128, 256)
 
 
 def route(dtype) -> str:
-    """The tile body a launch takes: ``"wgmma"`` (tensor cores) for bf16,
-    ``"simt"`` (CUDA cores) for f32 and f16. Both take every head dim in
+    """The tile body a launch takes: ``"wgmma"`` (tensor cores) for bf16 and
+    f16, ``"simt"`` (CUDA cores) for f32. Both take every head dim in
     ``HEAD_DIMS`` (:func:`check_heads` refuses the others)."""
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    return "wgmma" if dtype in (torch.bfloat16, torch.float16) else "simt"
 
 
 def check_heads(name, q, k, v):

@@ -328,6 +328,58 @@ def test_ref_spt_and_matmul_match_jnp(jx):
             np.testing.assert_allclose(_np(g), _np(w), rtol=tol, atol=1e-4)
 
 
+# f16 plain versions against the reference in f16: both sides read the
+# same f16 inputs, compute in f32 (scores, softmax and P.V, or the
+# product; P stays f32) and round once to f16, so they land on the same or
+# a neighbouring f16 value: at most 2^-10 of the value apart (atol 1e-4 for
+# outputs near 0, where an f16 step is smaller still)
+F16_RTOL, F16_ATOL = 2 ** -10, 1e-4
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("ref_attention", dict(causal=True)),
+    ("ref_attention", dict(causal=True, window=16)),
+    ("ref_attention", dict(causal=False, window=24)),
+    ("flash_attention", dict(block_q=64, block_k=64)),
+    ("dual_tenant_attention", dict(sm_be=0.3, block_q=64, block_k=64)),
+    ("ref_dual_tenant_matmul", {}),
+    ("dual_tenant_matmul", dict(sm_be=0.3, block_m=64, block_n=64,
+                                block_k=64)),
+])
+def test_plain_f16_matches_reference(jx, fn, kw):
+    """ref.ref_attention (GQA: H 4 over Hkv 2) and ref.ref_dual_tenant_matmul
+    in f16 against the reference's: its jnp oracle of the same name, or its
+    Pallas kernel in interpret mode (``flash_attention``,
+    ``dual_tenant_attention``, ``dual_tenant_matmul``), whose plain version
+    on the port's side is what ``ops`` runs for CPU tensors."""
+    jnp, jops, jref = jx
+    rng = np.random.default_rng(34)
+    if fn.endswith("matmul"):
+        K = 256
+        arrs = [_rand(rng, (128, K)), _rand(rng, (K, 192)) * K ** -0.5,
+                _rand(rng, (256, K)), _rand(rng, (K, 192)) * K ** -0.5]
+    else:
+        shapes = [(1, 128, 4, 64), (1, 128, 2, 64), (1, 128, 2, 64)]
+        if fn == "dual_tenant_attention":
+            shapes += [(2,) + sh[1:] for sh in shapes]
+        arrs = [_rand(rng, sh) for sh in shapes]
+    pairs = [_both(jnp, a, "float16") for a in arrs]
+    j_in, t_in = [p[0] for p in pairs], [p[1] for p in pairs]
+    want = getattr(jref if fn.startswith("ref_") else jops, fn)(*j_in, **kw)
+    if fn.endswith("matmul"):
+        got = ref.ref_dual_tenant_matmul(*t_in)
+    elif fn == "dual_tenant_attention":
+        got = (ref.ref_attention(*t_in[:3]), ref.ref_attention(*t_in[3:]))
+    else:
+        got = ref.ref_attention(*t_in, **(kw if fn == "ref_attention" else {}))
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and g.shape == tuple(w.shape)
+        np.testing.assert_allclose(_np(g), _np(w), rtol=F16_RTOL,
+                                   atol=F16_ATOL)
+
+
 @pytest.mark.parametrize("B,T,H,K,P", [(1, 64, 2, 16, 32), (2, 32, 4, 8, 8)])
 def test_ref_ssd_scan_matches_jnp(jx, B, T, H, K, P):
     jnp, _, jref = jx
@@ -358,10 +410,11 @@ def test_cpu_path_counts_no_launch():
 @pytest.mark.parametrize("dtype,D,want", [
     ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
     ("bfloat16", 256, "wgmma"), ("float32", 128, "simt"),
-    ("float16", 64, "simt"), ("bfloat16", 32, None)])
+    ("float16", 64, "wgmma"), ("float16", 128, "wgmma"),
+    ("float16", 256, "wgmma"), ("bfloat16", 32, None)])
 def test_flash_route(dtype, D, want):
-    """bf16 takes the tensor-core body at every head dim the kernels take;
-    f32 and f16 keep the CUDA-core body; any other head dim is refused
+    """bf16 and f16 take the tensor-core body at every head dim the kernels
+    take; f32 keeps the CUDA-core body; any other head dim is refused
     before a route is picked (``want`` None)."""
     dt = getattr(torch, dtype)
     q, kv = torch.zeros(1, 4, 2, D, dtype=dt), torch.zeros(1, 4, 1, D,
@@ -378,10 +431,13 @@ def test_flash_route(dtype, D, want):
     ("bfloat16", 2048, 6144, "wgmma"), ("bfloat16", 72, 200, "wgmma"),
     ("bfloat16", 128, 128, "wgmma"), ("bfloat16", 70, 200, "simt"),
     ("bfloat16", 72, 201, "simt"), ("bfloat16", 0, 64, "simt"),
-    ("float32", 2048, 6144, "simt"), ("float16", 64, 64, "simt")])
+    ("float32", 2048, 6144, "simt"), ("float16", 64, 64, "wgmma"),
+    ("float16", 70, 200, "simt"), ("float16", 72, 201, "simt"),
+    ("float16", 0, 64, "simt")])
 def test_matmul_route(dtype, K, N, want):
-    """The tensor-core matmul needs bf16 and 16-byte row strides (K and N
-    multiples of 8); every other shape and type takes the CUDA-core body."""
+    """The tensor-core matmul needs bf16 or f16 and 16-byte row strides (K
+    and N multiples of 8); every other shape and type takes the CUDA-core
+    body."""
     assert dtm.route(getattr(torch, dtype), K, N) == want
 
 
@@ -431,13 +487,15 @@ def _cuda_qkv(cuda, seed, B, S, H, Hkv, D, dtype):
 
 # attention on the card, elementwise (rtol = atol): f32 the reference's;
 # bf16 as chip_smoke.py holds it; f16: inputs rounded the same on both sides,
-# so kernel and plain version differ by f32 summation order and one output
-# rounding (2^-11 of the value) each, as chip_smoke.py's F16_TOL
+# so kernel and plain version differ by f32 summation order, one output
+# rounding (2^-11 of the value) each and the kernel's rounding of P to f16
+# for P.V (2^-11 of each weight), as chip_smoke.py's F16_TOL
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 2e-3}
 # Beside the elementwise tolerance, which at long S is about the size of a
 # late row's output: each (batch row, head)'s relative L2 error over the
 # rows [S/2, S), as chip_smoke.py's phase 7 holds it (f16: a few output
-# roundings of 2^-11, against a dropped or repeated key tile's ~0.1)
+# roundings and P's, of 2^-11 each, against a dropped or repeated key
+# tile's ~0.1)
 LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-3}
 # a long ragged S: past a key-tile ring's depth, a multiple of no tile
 LONG_S = 999
@@ -456,7 +514,7 @@ def _assert_late_rows(got, want, dtype):
 def _check_flash(q, k, v, dtype, causal, window, softcap):
     """One flash_attention launch on its route, within ATTN_TOL and
     LATE_REL_TOL of the plain version."""
-    way = "wgmma" if dtype == "bfloat16" else "simt"
+    way = fa.route(q.dtype)
     before = fa.flash_attention.routes[way]
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
@@ -473,15 +531,15 @@ def _check_dual_is_flash(cuda, dtype, D, B_ls, B_be, S):
     bit for sm_be 0.1/0.5/0.9, on the route of its dtype."""
     t1 = _cuda_qkv(cuda, 1, B_ls, S, 4, 2, D, dtype)
     t2 = _cuda_qkv(cuda, 2, B_be, S, 4, 2, D, dtype)
+    way = fa.route(t1[0].dtype)
+    routes = ops.route_counts()
     w1 = ops.flash_attention(*t1, causal=True)
     w2 = ops.flash_attention(*t2, causal=True)
-    way = "wgmma" if dtype == "bfloat16" else "simt"
-    routes = ops.route_counts()
     for sm_be in (0.1, 0.5, 0.9):
         o1, o2 = ops.dual_tenant_attention(*t1, *t2, sm_be=sm_be)
         assert torch.equal(o1, w1) and torch.equal(o2, w2), sm_be
-    assert ops.route_counts()["dual_tenant_attention"][way] == \
-        routes["dual_tenant_attention"][way] + 3
+    for name, n in (("flash_attention", 2), ("dual_tenant_attention", 3)):
+        assert ops.route_counts()[name][way] == routes[name][way] + n
     want = ref.ref_attention(*t2, causal=True)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(w2.float(), want.float(), rtol=tol, atol=tol)
@@ -533,9 +591,9 @@ class TestCudaKernels:
                                                (0, 130, 64, 8),
                                                (130, 0, 1024, 96)])
     def test_dual_matmul(self, cuda, dtype, m_ls, m_be, K, N):
-        """Aligned ragged bf16 (K 72, N 200) on the tensor cores, K 70 and
-        71 on the CUDA cores (4-byte copies, and one-element copies of f16
-        and bf16 at K 71); K 1024 cycles the CUDA-core body's ring many
+        """Aligned ragged bf16 and f16 (K 72, N 200) on the tensor cores, K
+        70 and 71 on the CUDA cores (4-byte copies, and one-element copies
+        of f16 and bf16 at K 71); K 1024 cycles the CUDA-core body's ring many
         times, N 200 ends inside an n-block; an empty tenant on either."""
         g = torch.Generator(device=cuda).manual_seed(3)
         dt = getattr(torch, dtype)
@@ -544,8 +602,7 @@ class TestCudaKernels:
         b_ls, b_be = (torch.randn(K, N, generator=g, device=cuda).to(dt)
                       for _ in range(2))
         way = dtm.route(dt, K, N)
-        assert way == ("wgmma" if dtype == "bfloat16" and K % 8 == 0
-                       else "simt")
+        assert way == ("simt" if dtype == "float32" or K % 8 else "wgmma")
         before = dtm.dual_tenant_matmul.routes[way]
         got = ops.dual_tenant_matmul(a_ls, b_ls, a_be, b_be, sm_be=0.3)
         assert dtm.dual_tenant_matmul.routes[way] == before + 1
