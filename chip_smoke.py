@@ -8,20 +8,20 @@ non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile the CUDA kernels with nvcc (sm_90a), in parallel.
 3. kernels — each kernel against its plain PyTorch version on the card, in
-             bf16 and f32, at the two head shapes of the engine phase
-             (qwen3-1.7b: H=16 Hkv=8 D=128; stablelm-1.6b: H=32 Hkv=32 D=64),
-             with ragged positions, sentinel rows, unmapped page-table
-             entries, abort caps and Sq=1 prefill against decode (f32
-             elementwise, bf16 per (row, KV head) by relative L2 with a
-             planted fault); all four attention kernels also per (row, KV
-             head) by a relative L2 over the rows that see >= 512 keys,
-             against a planted fault (decode: a 256-key span read twice;
-             prefill: a 128-key tile holding the tile before it) that must
-             read above the limit; dense decode on a bshd copy equal to bhsd
-             bit for bit; every prefill call required on the route
-             ``route(dtype, D)`` names (bf16: the tensor-core "wgmma" body;
-             f32 and f16: "simt"; f16 on qwen3-1.7b heads only, checked
-             within F16_TOL and timed). Each kernel is timed beside its
+             bf16, f32 and f16 (f16 within F16_TOL), at the two head shapes
+             of the engine phase (qwen3-1.7b: H=16 Hkv=8 D=128;
+             stablelm-1.6b: H=32 Hkv=32 D=64), with ragged positions,
+             sentinel rows, unmapped page-table entries, abort caps and
+             Sq=1 prefill against decode (f32 elementwise, bf16 and f16 per
+             (row, KV head) by relative L2 with a planted fault); all four
+             attention kernels also per (row, KV head) by a relative L2
+             over the rows that see >= 512 keys, against a planted fault
+             (decode: a 256-key span read twice; prefill: a 128-key tile
+             holding the tile before it) that must read above the limit;
+             dense decode on a bshd copy equal to bhsd bit for bit; every
+             prefill call required on the route ``route(dtype, D)`` names
+             (bf16 and f16: the tensor-core "wgmma" body; f32: "simt").
+             Each kernel is timed beside its
              plain version and one PyTorch library call, on the device from
              a CUDA graph of 20 calls (``device_ms``; a call may take the
              host longer to enqueue than the device to run), with the
@@ -36,7 +36,12 @@ non-zero:
 6. dense   — an LS-only dense-cache engine with use_flash, likewise;
              then (6b) the LS qwen3-1.7b tenant in f32 (TF32 off), dense
              and paged: every prefill launch on the CUDA-core ("simt")
-             body, its launches the f32 rows' engine counts.
+             body, its launches the f32 rows' engine counts; (6c) the same
+             tenant in f16, dense and paged: every prefill launch on the
+             tensor-core ("wgmma") body, its launches the f16 rows' engine
+             counts; then one full-width f16 paged prefill_step (4 x 256
+             tokens) with use_flash on and off: finite logits, within
+             F16_MODEL_REL_TOL relative L2 of each other.
 7. SGDRC kernels — the kernel layer's co-execution and shadow-page-table
              entry points (``repro_torch.kernels.ops``) at full width:
              flash_attention at qwen3-1.7b heads (causal, bf16, f32 and
@@ -271,11 +276,12 @@ non-zero:
              printed. The process group is destroyed
              at the end of the phase.
 
-Launch counts of phases 5, 6, 6b, 7, 8a, 8c and 9-12 are read with the
+Launch counts of phases 5, 6, 6b, 6c, 7, 8a, 8c and 9-12 are read with the
 counters set to 0 just before each phase drives its path (phases 7 and 8a
 count their drive, before their checks and timings). The next-to-last line
 is one JSON object with every kernel's launches and times (phase 3's f32
-rows of the four engine kernels under "float32", with phase 6b's launches;
+rows of the four engine kernels under "float32", with phase 6b's launches,
+and its f16 rows under "float16", with phase 6c's;
 phase 9's runs under "tidal_launches", phase 10's (a)-(c) under
 "hierarchy_launches" and phase 11a's runs under "disagg_launches" of the
 two paged rows, phase 11b's launches by flag set and their worst error
@@ -316,25 +322,31 @@ LATE_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # CUDA-core bodies that sum in f32 in other orders, within the reference's
 # 2e-6 (tests/test_kernels.py).
 SQ1_TOL = {"float32": (2e-6, 2e-6)}
-# bf16: the prefill body rounds P to bf16 for P.V on the tensor cores,
-# decode keeps P in f32, so an elementwise bound of one output rounding
-# (rtol 2^-7, atol 1e-4) fails on short rows' near-zero outputs: excess
-# over it 2.2e-4 to 1.4e-3 (H100, both models, paged and dense). Held
-# instead per (row, KV head) by the relative L2 between the two bodies:
-# sound 2.85e-3 to 4.22e-3; a planted fault (one 128-key tile of a long row
-# holding the tile before it) 0.235 to 0.304. The limit sits between, as
-# LATE_REL_TOL's: a few bf16 roundings against a tile-sized fault.
-SQ1_REL_TOL = {"bfloat16": 2e-2}
-# phase 3, f16 prefill (timed beside f32 on the CUDA-core body): f16 inputs
-# rounded the same on both sides, so kernel and plain version differ by f32
-# summation order and one output rounding (2^-11 of the value) each.
+# bf16 and f16: the prefill body rounds P to the type for P.V on the tensor
+# cores, decode keeps P in f32, so an elementwise bound of one output
+# rounding (bf16: rtol 2^-7, atol 1e-4) fails on short rows' near-zero
+# outputs: excess over it 2.2e-4 to 1.4e-3 (H100, both models, paged and
+# dense). Held instead per (row, KV head) by the relative L2 between the
+# two bodies: bf16 sound 2.85e-3 to 4.22e-3; a planted fault (one 128-key
+# tile of a long row holding the tile before it) 0.235 to 0.304. The limit
+# sits between, as LATE_REL_TOL's: a few roundings against a tile-sized
+# fault. f16 rounds 8x finer (2^-11 against 2^-8), so its limit is 10x
+# lower.
+SQ1_REL_TOL = {"bfloat16": 2e-2, "float16": 2e-3}
+# f16 kernels: f16 inputs rounded the same on both sides, so kernel and
+# plain version differ by f32 summation order and one output rounding
+# (2^-11 of the value) each; on the tensor-core bodies (chunked prefill,
+# phase 7's attention) also by the kernel's rounding of P to f16 for P.V
+# (2^-11 of each weight; the plain version keeps P in f32). On late rows a
+# few roundings of 2^-11 against a dropped or repeated key tile's ~0.1.
 F16_TOL = 2e-3
-# phase 7 attention in f16 (the tensor-core body): elementwise within
-# F16_TOL as above, plus the kernel's rounding of P to f16 for P.V (2^-11
-# of each weight; the plain version keeps P in f32); on late rows a few
-# roundings of 2^-11 against a dropped or repeated key tile's ~0.1
 ATTN_TOL = dict(TOL, float16=F16_TOL)
 ATTN_LATE_REL_TOL = dict(LATE_REL_TOL, float16=2e-3)
+# phase 6c: last-position logits of one full-width f16 prefill_step with
+# use_flash against without, relative L2. MODEL_REL_TOL's reasoning with
+# f16's 8x finer roundings (2^-11 against 2^-8): a sound kernel ~1e-3, a
+# wrong one O(1).
+F16_MODEL_REL_TOL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
@@ -584,9 +596,9 @@ def kernel_phase(torch, seed):
     aborts = [0, 1, 3, Sq, Sq + 5, 3, Sq, 1]
     for model, (H, Hkv, D) in HEADS.items():
         G = H // Hkv
-        for dname in ("bfloat16", "float32"):
+        for dname in ("bfloat16", "float32", "float16"):
             dtype = getattr(torch, dname)
-            tol = TOL[dname]
+            tol = ATTN_TOL[dname]
             main = dname == "bfloat16"
             tag = f"{model} {dname}"
 
@@ -608,11 +620,14 @@ def kernel_phase(torch, seed):
                            "plain_ms": plain_ms, "library_ms": lib_ms,
                            "bound_ms": bound[0], "bound_by": bound[1],
                            "of_bound": bound[0] / ms,
-                           "vs_library": ms / lib_ms}
+                           "vs_library": ms / lib_ms, "host_ms": host}
                     if main:
                         results[name] = row
                     else:  # the bf16 row comes first
-                        results[name]["float32"] = row
+                        row["vs_bfloat16"] = ms / results[name]["ms"]
+                        log(f"  {name:24s} {tag:26s} vs bfloat16 "
+                            f"{row['vs_bfloat16']:.3f}")
+                        results[name][dname] = row
 
             def close(a, b, what):
                 err = (a.float() - b.float()).abs().max().item()
@@ -626,7 +641,7 @@ def kernel_phase(torch, seed):
                 per (row, KV head) over the rows that see >= 512 keys,
                 within LATE_REL_TOL; ``planted``, the planted fault's
                 reading (its row's least over KV heads), above it."""
-                lim = LATE_REL_TOL[dname]
+                lim = ATTN_LATE_REL_TOL[dname]
                 sound, planted = sound.max().item(), planted.min().item()
                 log(f"  {name:24s} {tag:26s} rows >= 512 keys: relative L2 "
                     f"{sound:.3e}, planted fault {planted:.3e} (limit {lim})")
@@ -637,8 +652,9 @@ def kernel_phase(torch, seed):
 
             def sq1(one, dec, fault, fault_row, what):
                 """Sq = 1 prefill against decode: f32 elementwise within
-                SQ1_TOL; bf16 per (row, KV head) by relative L2 within
-                SQ1_REL_TOL, a planted fault's reading above it."""
+                SQ1_TOL; bf16 and f16 (the tensor-core body) per (row, KV
+                head) by relative L2 within SQ1_REL_TOL, a planted fault's
+                reading above it."""
                 d = (one.float() - dec.float()).abs()
                 rel = _rel_rows(one, dec, list(range(one.shape[0])),
                                 Hkv).max().item()
@@ -659,31 +675,6 @@ def kernel_phase(torch, seed):
                                     f"relative L2 {rel} over {lim}")
                 require(planted > lim, f"Sq=1 {what} {tag}: the check misses "
                                        f"a planted fault ({planted})")
-
-            def f16_row(name, fn, tensors, call, plain, sdpa):
-                """``call`` and ``plain`` on the f32 call's q, k, v
-                (``tensors``) rounded to f16, on the CUDA-core body: within
-                F16_TOL of the plain version, and timed beside SDPA on the
-                f32 library call's q, k, v (``sdpa``, with its mask)
-                rounded to f16."""
-                qkv = [x.half() for x in tensors]
-                out = routed(fn, lambda: call(*qkv))
-                want = plain(*qkv)
-                err = (out.float() - want.float()).abs().max().item()
-                require(torch.allclose(out.float(), want.float(),
-                                       rtol=F16_TOL, atol=F16_TOL),
-                        f"{name} {model} float16: max abs {err}")
-                ms = graph_ms(lambda: call(*qkv))
-                lq, lk, lv = (x.half() for x in sdpa[:3])
-                lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-                    lq, lk, lv, attn_mask=sdpa[3]))
-                del lq, lk, lv
-                log(f"  {name:24s} {model + ' float16':26s} max_abs_err="
-                    f"{err:.3e} device_ms={ms:.4f} library_ms={lib_ms:.4f} "
-                    f"vs_library={ms / lib_ms:.3f}")
-                results[name]["float16"] = {
-                    "max_abs_err": err, "ms": ms, "library_ms": lib_ms,
-                    "vs_library": ms / lib_ms}
 
             def routed(fn, call):
                 """``call()``, required to launch ``fn`` once on the route
@@ -785,11 +776,6 @@ def kernel_phase(torch, seed):
                 _bound_ms(kvk, B, Sq, H, Hkv, D, q.element_size(), pairs,
                           dname),
                 host_ms(kern), (cuda_ms(kern), cuda_ms(lib)))
-            if not main and model == "qwen3-1.7b":
-                f16_row("prefill_attention_paged", fn, (q, kpool, vpool),
-                        lambda *qkv: fn(*qkv, pt, posp),
-                        lambda *qkv: ref.ref_prefill_attention_paged(
-                            *qkv, pt, posp), (qt, kr, vr, mask))
 
             # -- 3: dense decode (bhsd, the serving layout; bshd too) --
             Bd, Smax = 4, 2048
@@ -898,12 +884,6 @@ def kernel_phase(torch, seed):
                 _bound_ms(kvk, Bd, Sq, H, Hkv, D, q.element_size(), pairs,
                           dname),
                 host_ms(kern), (cuda_ms(kern), cuda_ms(lib)))
-            if not main and model == "qwen3-1.7b":
-                f16_row("prefill_attention", fn, (q, kc, vc),
-                        lambda *qkv: fn(*qkv, posp),
-                        lambda q, k, v: ref.ref_prefill_attention(
-                            q, k.transpose(1, 2), v.transpose(1, 2), posp),
-                        (qt, kr, vr, mask))
             del kpool, vpool, kc, vc, kr, vr
             torch.cuda.empty_cache()
     return results
@@ -1140,17 +1120,22 @@ def dense_phase(torch, seed):
     return counts, routes
 
 
-def f32_engine_phase(torch, seed):
-    """The LS qwen3-1.7b tenant in f32 (TF32 off), dense cache then paged,
-    with the same weights: every prefill launch on the CUDA-core ("simt")
-    body. Returns the launch counts of both runs."""
+def typed_engine_phase(torch, seed, dname):
+    """The LS qwen3-1.7b tenant in ``dname`` (f32 with TF32 off, or f16),
+    dense cache then paged, with the same weights: every prefill launch on
+    the route ``route(dtype, 128)`` names (f32: the CUDA-core "simt" body;
+    f16: the tensor-core "wgmma" body). Returns the launch counts of both
+    runs and the tenant's params."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    cfg = get_config("qwen3-1.7b").replace(activation_dtype="float32")
+    from repro_torch.kernels import prefill_attention as kp_
+    cfg = get_config("qwen3-1.7b").replace(activation_dtype=dname)
+    way = kp_.route(getattr(torch, dname), cfg.head_dim)
     rng = np.random.default_rng(seed + 13)
     ls_lens = [int(x) for x in rng.integers(128, 513, 4)]
-    log(f"  LS prompts {ls_lens}; max_new 8; chunk 256; f32")
+    log(f"  LS prompts {ls_lens}; max_new 8; chunk 256; {dname}; prefill "
+        f"route {way}")
     counts, params = {}, None
     for paged in (False, True):
         sfx = "_paged" if paged else ""
@@ -1167,14 +1152,60 @@ def f32_engine_phase(torch, seed):
         log(f"  {'paged' if paged else 'dense'}: "
             f"{time.perf_counter() - t0:.2f}s wall (tenant set-up "
             f"included), launches {run}, prefill routes {routes}")
-        require(run[name] > 0 and routes == {"wgmma": 0, "simt": run[name]},
-                f"f32 engine prefill routes {routes}, launches {run}")
+        require(run[name] > 0 and routes == {**dict.fromkeys(routes, 0),
+                                             way: run[name]},
+                f"{dname} engine prefill routes {routes}, launches {run}")
         for k in ("decode_attention" + sfx, name):
             counts[k] = run[k]
         del eng
-    del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, params
+
+
+def f16_prefill_check(torch, seed, params):
+    """One full-width f16 paged prefill_step of 4 x 256 tokens with
+    ``params`` (phase 6c's tenant), use_flash on and off: finite logits of
+    the right shape, the last position's within F16_MODEL_REL_TOL relative
+    L2 of each other, the flash run launching the prefill kernel once a
+    layer on "wgmma"."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    cfg = get_config("qwen3-1.7b").replace(activation_dtype="float16")
+    B, L, P, dev = 4, 256, 16, "cuda"
+    gen = torch.Generator(device="cpu").manual_seed(seed + 17)
+    toks = torch.randint(0, cfg.vocab_size, (B, L), generator=gen).to(dev)
+    pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    logits = {}
+    for flash in (False, True):
+        pools = tf.init_paged_cache(cfg, B * P, PAGE, device=dev)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            out, _ = tf.prefill_step(
+                params, cfg, toks, pools,
+                torch.zeros(B, dtype=torch.int32, device=dev),
+                ctx_extra={"page_table": pt}, use_flash=flash)
+        torch.cuda.synchronize()
+        routes = ops.route_counts()["prefill_attention_paged"]
+        require(routes == {"wgmma": cfg.num_layers if flash else 0,
+                           "simt": 0},
+                f"f16 prefill_step use_flash={flash}: routes {routes}")
+        require(out.dtype == torch.float16
+                and tuple(out.shape) == (B, 1, cfg.vocab_size),
+                f"f16 prefill_step logits {out.dtype} {tuple(out.shape)}")
+        n_bad = int((~torch.isfinite(out)).sum())
+        log(f"  f16 prefill_step {B} x {L}, use_flash={flash}: non-finite "
+            f"logits {n_bad}, max |logit| {out.float().abs().max():.3f}")
+        require(n_bad == 0, f"f16 prefill_step use_flash={flash}: {n_bad} "
+                            "non-finite logits")
+        logits[flash] = out[:, 0].float()
+    lf, lr = logits[True], logits[False]
+    rel = ((lf - lr).norm() / lr.norm()).item()
+    log(f"  f16 last logits flash vs torch-op: rel L2 {rel:.3e} (tol "
+        f"{F16_MODEL_REL_TOL}), max abs {(lf - lr).abs().max().item():.3e},"
+        f" argmax agreement "
+        f"{(lf.argmax(-1) == lr.argmax(-1)).float().mean().item():.2f}")
+    require(rel <= F16_MODEL_REL_TOL, f"f16 model logits rel err {rel}")
 
 
 # ---------------------------------------------------------------------------
@@ -4637,11 +4668,19 @@ def early_phases(torch, args, kres):
     for name, routes in (("prefill_attention_paged", paged_routes),
                          ("prefill_attention", dense_routes)):
         kres[name]["routes"] = routes[name]
-    log("== phase 6b: engine LS qwen3-1.7b in f32, dense then paged, flash")
-    f32_counts = f32_engine_phase(torch, args.seed)
-    for name in ("decode_attention_paged", "prefill_attention_paged",
-                 "decode_attention", "prefill_attention"):
-        kres[name]["float32"]["launches"] = f32_counts[name]
+    for sub, dname in (("6b", "float32"), ("6c", "float16")):
+        log(f"== phase {sub}: engine LS qwen3-1.7b in {dname}, dense then "
+            "paged, flash")
+        t_phase = time.perf_counter()
+        counts, params = typed_engine_phase(torch, args.seed, dname)
+        for name in ("decode_attention_paged", "prefill_attention_paged",
+                     "decode_attention", "prefill_attention"):
+            kres[name][dname]["launches"] = counts[name]
+        if dname == "float16":
+            f16_prefill_check(torch, args.seed, params)
+        del params
+        torch.cuda.empty_cache()
+        log(f"  phase {sub} wall {time.perf_counter() - t_phase:.1f}s")
 
     if args.until <= 6:
         return None
@@ -4728,7 +4767,9 @@ def main():
                 log(f"  [{name}] {entry}: {line.split(':', 1)[-1].strip()}")
 
     log("== phase 3: kernels vs plain versions")
+    t_phase = time.perf_counter()
     kres = kernel_phase(torch, args.seed)
+    log(f"  phase 3 wall {time.perf_counter() - t_phase:.1f}s")
 
     if args.until <= 3:
         return 1

@@ -3,11 +3,11 @@
 // src/repro/kernels/prefill_attention.py::prefill_attention and
 // ::prefill_attention_paged. Two tile bodies, picked by the caller's route
 // before the launch (kernels/prefill_attention.py::route):
-//   wgmma: bf16 at head dims 64 and 128, on the tensor cores
+//   wgmma: bf16 and f16 at head dims 64 and 128, on the tensor cores
 //          (prefill_wgmma.cuh: units of 128 flattened query rows, key tiles
 //          of 128 at absolute positions, 16-byte cp.async into swizzled
 //          tiles);
-//   simt:  f32 and f16 at head dims 32, 64 and 128, and bf16 at 32, on CUDA
+//   simt:  f32 at head dims 32, 64 and 128, and bf16 and f16 at 32, on CUDA
 //          cores (prefill_simt.cuh: units of 64 flattened query rows, key
 //          tiles of 128 at absolute positions, register-tiled f32 FMAs,
 //          bulk copies into shared memory).
@@ -22,25 +22,27 @@
 namespace sgdrc {
 namespace {
 
-// The simt route: bf16 only at D 32 (its D 64 and 128 take the wgmma route,
-// so they are not instantiated here).
+// The simt route: bf16 and f16 only at D 32 (their D 64 and 128 take the
+// wgmma route, so they are not instantiated here).
 template <typename T>
 cudaError_t launch_simt(const AttnArgs& a, int D, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if (D == 32) return simt::launch<T, 32>(a, stream);
-  if constexpr (!kBf16) {
+  if constexpr (std::is_same_v<T, float>) {
     if (D == 64) return simt::launch<T, 64>(a, stream);
     if (D == 128) return simt::launch<T, 128>(a, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+// The wgmma route: bf16 and f16 at D 64 and 128.
 cudaError_t launch_wgmma(const AttnArgs& a, int dtype, int D,
                          cudaStream_t stream) {
-  if (dtype != 1) return cudaErrorInvalidValue;  // bf16 only
-  if (D == 64) return prefill::launch<64>(a, stream);
-  if (D == 128) return prefill::launch<128>(a, stream);
-  return cudaErrorInvalidValue;
+  return with_bf16_or_f16(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if (D == 64) return prefill::launch<T, 64>(a, stream);
+    if (D == 128) return prefill::launch<T, 128>(a, stream);
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace

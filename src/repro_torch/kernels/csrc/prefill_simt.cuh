@@ -1,8 +1,8 @@
 // The CUDA-core tile body of chunked-prefill attention: the "simt" route of
-// prefill_attention.cu, for f32 and f16 at head dims 32, 64 and 128 and bf16
-// at 32 (bf16 at 64 and 128 takes the tensor-core body of prefill_wgmma.cuh,
-// which computes the same contract). f32 stays on CUDA cores because TF32
-// would break its 2e-5 tolerance.
+// prefill_attention.cu, for f32 at head dims 32, 64 and 128 and bf16 and
+// f16 at 32 (bf16 and f16 at 64 and 128 take the tensor-core body of
+// prefill_wgmma.cuh, which computes the same contract). f32 stays on CUDA
+// cores because TF32 would break its 2e-5 tolerance.
 //
 // Replaces, with prefill_wgmma.cuh, the Pallas online-softmax body of
 //   src/repro/kernels/prefill_attention.py (_kernel, prefill_attention[_paged])
@@ -56,8 +56,8 @@
 //   entry a tile ahead. V rows past the unit's keys are zeroed (P is 0
 //   there, and 0 times a stale NaN would not be).
 // Shared memory: q + K + V + P: 193 KB at f32 D 128 (one block an SM), 113
-// KB at f32 D 64, 129 KB at f16 D 128. Registers: ptxas gives every
-// instance 238-254 (no spills), so one block an SM in any case.
+// KB at f32 D 64. Registers: ptxas gives every instance 238-254 (no
+// spills), so one block an SM in any case.
 //
 // Bits. Every floating-point operation is an explicit round-to-nearest
 // intrinsic, and what a row computes does not depend on its slot in the

@@ -1,7 +1,9 @@
-// The bf16 tile body of chunked-prefill attention on Hopper tensor cores: the
-// "wgmma" route of prefill_attention.cu, for bf16 at head dims 64 and 128
-// (f32, f16, and bf16 at D 32 take prefill_simt.cuh's CUDA-core body, the
-// "simt" route).
+// The bf16 and f16 tile body of chunked-prefill attention on Hopper tensor
+// cores: the "wgmma" route of prefill_attention.cu, for bf16 and f16 at head
+// dims 64 and 128 (f32, and bf16 and f16 at D 32, take prefill_simt.cuh's
+// CUDA-core body, the "simt" route). The element type T (__nv_bfloat16 or
+// __half) changes the pointers' type, the instruction's type, P's rounding
+// and the output's; bytes, tiles, ring and schedule are the same for both.
 //
 // Replaces, with prefill_simt.cuh, the Pallas online-softmax body of
 //   src/repro/kernels/prefill_attention.py (_kernel, prefill_attention[_paged])
@@ -51,9 +53,9 @@
 //   accumulators, the scale D^-0.5 on the f32 scores; the mask per flattened
 //   row, skipped on tiles no mask touches (masking them changes no bit);
 //   online softmax in registers with explicit round-to-nearest intrinsics;
-//   P rounded once to bf16 into the register A operand of wgmma m64nDk16,
-//   V MN-major from shared memory; out = acc / max(l, 1e-30) stored through
-//   out's strides.
+//   P rounded once to T into the register A operand of wgmma m64nDk16,
+//   V MN-major from shared memory; out = acc / max(l, 1e-30), rounded once
+//   to T, stored through out's strides.
 // Shared memory: Q + STAGES * (K + V) + 1 KB of page-table entries: 3
 // stages, 225 KB at D 128; 4 stages, 145 KB at D 64. One block an SM: 384
 // threads start at 168 registers each; the producer gives some back
@@ -111,14 +113,14 @@ __device__ __forceinline__ void producer_sync() {
 // the stage's full barrier when they land. For a page pool, thread p reads
 // the page-table entry of key p of a tile two tiles ahead and publishes it
 // in shared memory for the tile's copies, so no copy waits on the table.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void produce(const AttnArgs& a, int b, int h,
                                        int row0, int G, int n_keys,
                                        int n_tiles, uint8_t* smem,
                                        uint64_t* bars) {
-  using T = Tile<D>;
-  constexpr int STAGES = T::STAGES, CPR = T::CPR, RPP = T::RPP;
-  constexpr int KPT = T::KPT;
+  using L = Tile<D>;
+  constexpr int STAGES = L::STAGES, CPR = L::CPR, RPP = L::RPP;
+  constexpr int KPT = L::KPT;
   static_assert(kProducers == BK, "one page-table entry a producer thread");
   const int p = threadIdx.x - kConsumers;
   const int jc = p % CPR, r_first = p / CPR;
@@ -126,9 +128,9 @@ __device__ __forceinline__ void produce(const AttnArgs& a, int b, int h,
   uint64_t* q_full = &bars[0];
   uint64_t* full = &bars[1];
   uint64_t* empty = &bars[1 + STAGES];
-  int* pages = reinterpret_cast<int*>(smem + T::PAGE_OFF);  // [2][BK]
+  int* pages = reinterpret_cast<int*>(smem + L::PAGE_OFF);  // [2][BK]
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q);
+  const T* qg = static_cast<const T*>(a.q);
   for (int r = r_first; r < BQ; r += RPP) {
     const int row = row0 + r;
     const bool ok = row < n_rows;  // rows past the chunk: zeros
@@ -140,8 +142,8 @@ __device__ __forceinline__ void produce(const AttnArgs& a, int b, int h,
   }
   cp_async_mbar_arrive(q_full);
 
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v);
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = static_cast<const T*>(a.v);
   const bool paged = a.page_table != nullptr;
   const int* pt_row = paged ? a.page_table + (int64_t)b * a.pt_stride : nullptr;
   const int ps = a.page_size;
@@ -167,7 +169,7 @@ __device__ __forceinline__ void produce(const AttnArgs& a, int b, int h,
       if (t + 2 < n_tiles) nxt = entry_of(t + 2);
     }
     if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) & 1) ^ 1);
-    uint8_t* ks = smem + T::Q_BYTES + st * T::STAGE_BYTES;
+    uint8_t* ks = smem + L::Q_BYTES + st * L::STAGE_BYTES;
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int kk = r_first + i * RPP, tk = t * BK + kk;
@@ -187,7 +189,7 @@ __device__ __forceinline__ void produce(const AttnArgs& a, int b, int h,
       }
       const uint32_t o = sw128_offset(BK, kk, jc);
       cp_async16(ks + o, kg + ko + jc * 8, ok);
-      cp_async16(ks + T::KV_BYTES + o, vg + vo + jc * 8, ok);
+      cp_async16(ks + L::KV_BYTES + o, vg + vo + jc * 8, ok);
     }
     cp_async_mbar_arrive(&full[st]);
   }
@@ -195,17 +197,17 @@ __device__ __forceinline__ void produce(const AttnArgs& a, int b, int h,
   cp_async_wait<0>();
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     prefill_wgmma_kernel(const AttnArgs a) {
-  using T = Tile<D>;
-  constexpr int STAGES = T::STAGES;
+  using L = Tile<D>;
+  constexpr int STAGES = L::STAGES;
   constexpr int NS = BK / 2;  // score registers a thread
   constexpr int NO = D / 2;   // output registers a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align1024(smem_raw);
-  uint8_t* kv_s = q_s + T::Q_BYTES;  // stage s: K at s * STAGE, V after
-  uint64_t* bars = reinterpret_cast<uint64_t*>(q_s + T::BAR_OFF);
+  uint8_t* kv_s = q_s + L::Q_BYTES;  // stage s: K at s * STAGE, V after
+  uint64_t* bars = reinterpret_cast<uint64_t*>(q_s + L::BAR_OFF);
   uint64_t* q_full = &bars[0];
   uint64_t* full = &bars[1];
   uint64_t* empty = &bars[1 + STAGES];
@@ -234,7 +236,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();  // the last block-wide barrier: the roles part here
   if (wg == 2) {
     regs_dec<kProducerRegs>();
-    if (n_tiles > 0) produce<D>(a, b, h, row0, G, n_keys, n_tiles, q_s, bars);
+    if (n_tiles > 0)
+      produce<T, D>(a, b, h, row0, G, n_keys, n_tiles, q_s, bars);
     return;
   }
   regs_inc<kConsumerRegs>();
@@ -268,8 +271,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(&full[st], (t / STAGES) & 1);
     fence_proxy_async();  // the copies (generic proxy) before wgmma reads
     if (k0 < wg_keys) {   // uniform over the warpgroup
-      const uint32_t k_addr = smem_u32(kv_s + st * T::STAGE_BYTES);
-      const uint32_t v_addr = k_addr + T::KV_BYTES;
+      const uint32_t k_addr = smem_u32(kv_s + st * L::STAGE_BYTES);
+      const uint32_t v_addr = k_addr + L::KV_BYTES;
 
       // S = Q K^T over D in k16 steps (the first overwrites s: scale-d 0)
       float s[NS];
@@ -282,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             desc_sw128(q_addr + (kd / 4) * BQ * 128 + off, 16, 1024);
         const uint64_t db =
             desc_sw128(k_addr + (kd / 4) * BK * 128 + off, 16, 1024);
-        wgmma_ss_n128<0>(s, da, db, kd > 0);
+        wgmma_ss_n128<0, T>(s, da, db, kd > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -336,10 +339,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const float* lo = s + 8 * kk;
-        pf[kk][0] = pack_bf16(lo[0], lo[1]);
-        pf[kk][1] = pack_bf16(lo[2], lo[3]);
-        pf[kk][2] = pack_bf16(lo[4], lo[5]);
-        pf[kk][3] = pack_bf16(lo[6], lo[7]);
+        pf[kk][0] = pack2_rn<T>(lo[0], lo[1]);
+        pf[kk][1] = pack2_rn<T>(lo[2], lo[3]);
+        pf[kk][2] = pack2_rn<T>(lo[4], lo[5]);
+        pf[kk][3] = pack2_rn<T>(lo[6], lo[7]);
       }
 
       // O += P V over the tile's keys in k16 steps
@@ -350,9 +353,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint64_t dv =
             desc_sw128(v_addr + kk * 16 * 128, BK * 128, 1024);
         if constexpr (D == 64)
-          wgmma_rs_n64<1>(o, pf[kk], dv);
+          wgmma_rs_n64<1, T>(o, pf[kk], dv);
         else
-          wgmma_rs_n128<1>(o, pf[kk], dv);
+          wgmma_rs_n128<1, T>(o, pf[kk], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -364,36 +367,35 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  // out = acc / max(l, 1e-30), rounded once to bf16; a row that saw no key
+  // out = acc / max(l, 1e-30), rounded once to T; a row that saw no key
   // (no tile, or a skipped warpgroup) writes zeros
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out);
+  T* ob = static_cast<T*>(a.out);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r0 + 8 * r;
     if (row >= n_rows) continue;
-    __nv_bfloat16* orow = ob + b * a.o_sb + (row / G) * a.o_ss +
-                          (int64_t)(h * G + row % G) * a.o_sh;
+    T* orow = ob + b * a.o_sb + (row / G) * a.o_ss +
+              (int64_t)(h * G + row % G) * a.o_sh;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       const int i = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
-          __floats2bfloat162_rn(__fdiv_rn(o[i], den),
-                                __fdiv_rn(o[i + 1], den));
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + cq) =
+          pack2_rn<T>(__fdiv_rn(o[i], den), __fdiv_rn(o[i + 1], den));
     }
   }
 }
 
-// Launch the wgmma body for head dim D on `stream`.
-template <int D>
+// Launch the wgmma body for element type T and head dim D on `stream`.
+template <typename T, int D>
 cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Tile<D>::SMEM);
   if (err != cudaSuccess) return err;
   const int G = a.H / a.Hkv;
   const dim3 grid(a.B * a.Hkv, (a.Sq * G + BQ - 1) / BQ);
-  prefill_wgmma_kernel<D><<<grid, kThreads, Tile<D>::SMEM, stream>>>(a);
+  prefill_wgmma_kernel<T, D><<<grid, kThreads, Tile<D>::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -19,10 +19,11 @@ head the chunk's Sq * G query rows flatten into row units that share every
 K/V tile they load, and a unit reads keys only up to the last position its
 own rows may see (``pos + min(last row, abort - 1)``), so the causal
 triangle and the abort cap both cut work. :func:`route` picks the body
-before the launch: ``"wgmma"`` for bf16 at head dims 64 and 128
+before the launch: ``"wgmma"`` for bf16 and f16 at head dims 64 and 128
 (``csrc/prefill_wgmma.cuh``: 128-row units, both products on the tensor
-cores), ``"simt"`` otherwise (``csrc/prefill_simt.cuh``: 64-row units, f32
-FMAs on CUDA cores from register tiles). Both copy q, k and v rows in
+cores, P and the output rounded once to the element type), ``"simt"``
+otherwise (``csrc/prefill_simt.cuh``: 64-row units, f32 FMAs on CUDA cores
+from register tiles). Both copy q, k and v rows in
 16-byte pieces (``cp.async``, bulk copies, vector loads), so every row must
 start on a 16-byte boundary. A launch that fails raises; nothing retries on
 the other route. The chunk's own K/V must already be in the cache.
@@ -38,15 +39,16 @@ import torch
 from ._build import ROUTES, count_launch, launch_attention
 from .decode_attention import pos_vector
 
-#: head dims of the tensor-core body
+#: head dims and element types of the tensor-core body
 WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def route(dtype, D) -> str:
-    """The tile body a launch takes: ``"wgmma"`` (tensor cores) for bf16 at
-    head dim 64 or 128, ``"simt"`` (CUDA cores) for f32, f16, and bf16 at
-    head dim 32."""
-    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+    """The tile body a launch takes: ``"wgmma"`` (tensor cores) for bf16 and
+    f16 at head dim 64 or 128, ``"simt"`` (CUDA cores) for f32, and for bf16
+    and f16 at head dim 32."""
+    return "wgmma" if dtype in WGMMA_DTYPES and D in WGMMA_HEAD_DIMS \
         else "simt"
 
 

@@ -8,7 +8,10 @@ the abort/progress protocol and Sq == 1 prefill == decode; chunked prefill
 split in two calls and cut at an abort cap against the whole chunk, the
 route each dtype and head dim takes, and the prefill wrapper's refusal of
 rows off 16-byte boundaries. Tolerances are the reference's: 2e-5 in f32,
-3e-2 in bf16.
+3e-2 in bf16; f16, which the reference's tests do not run, within 2e-3:
+both sides round the same f16 inputs, compute in f32 and round the output
+once to f16 (2^-11 of the value), so they differ by that rounding and f32
+summation order.
 
 The split-K decode kernel's plan (``kernels/decode_attention.py``): every
 visible key read once by the cluster's blocks for every row position and
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 2e-3}
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +179,7 @@ def test_decode_attention_paged(jx):
 @pytest.mark.parametrize("B,Smax,Sq,H,Hkv,D", [
     (2, 256, 8, 8, 2, 64), (1, 128, 16, 4, 4, 64), (2, 128, 1, 4, 2, 128),
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_prefill_attention_sweep(jx, B, Smax, Sq, H, Hkv, D, dtype):
     jnp, jops = jx
     rng = np.random.default_rng(11)
@@ -190,7 +193,16 @@ def test_prefill_attention_sweep(jx, B, Smax, Sq, H, Hkv, D, dtype):
     _close(got, want, dtype)
 
 
-def test_prefill_attention_paged(jx):
+def _both_args(jnp, args, dtype):
+    """(reference, port) arguments from numpy ``args``: the floating ones
+    rounded to ``dtype`` by each framework, the integer ones as they are."""
+    pairs = [_both(jnp, a, dtype) if a.dtype == np.float32 else
+             (jnp.asarray(a), torch.from_numpy(a)) for a in args]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_prefill_attention_paged(jx, dtype):
     jnp, jops = jx
     B, Smax, Sq, H, Hkv, D, ps, n_pages = 3, 128, 8, 8, 2, 64, 16, 32
     rng = np.random.default_rng(12)
@@ -199,14 +211,16 @@ def test_prefill_attention_paged(jx):
     kp, vp, pt = _paged(rng, kc, vc, ps, n_pages)
     pt[0, 1:] = n_pages            # row 0 (chunk within page 0): unmapped
     pos = np.asarray([0, 40, 120], np.int32)
-    args = (q, kp, vp, pt, pos)
-    want = jops.prefill_attention_paged(*(jnp.asarray(a) for a in args))
-    got = ops.prefill_attention_paged(*(torch.from_numpy(a) for a in args))
-    _close(got, want)
+    jargs, targs = _both_args(jnp, (q, kp, vp, pt, pos), dtype)
+    want = jops.prefill_attention_paged(*jargs)
+    got = ops.prefill_attention_paged(*targs)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
 @pytest.mark.parametrize("paged", [False, True])
-def test_prefill_attention_abort_progress(jx, paged):
+def test_prefill_attention_abort_progress(jx, paged, dtype):
     """abort caps {0, 1, 3, Sq, Sq+5}: progress equals the reference's
     exactly, and the rows before each cap agree."""
     jnp, jops = jx
@@ -218,27 +232,24 @@ def test_prefill_attention_abort_progress(jx, paged):
     abort = np.asarray([0, 1, 3, Sq, Sq + 5], np.int32)
     if paged:
         kp, vp, pt = _paged(rng, kc, vc, ps, 48)
-        args = (q, kp, vp, pt, pos)
+        jargs, targs = _both_args(jnp, (q, kp, vp, pt, pos), dtype)
         want, wprog = jops.prefill_attention_paged(
-            *(jnp.asarray(a) for a in args), abort=jnp.asarray(abort))
+            *jargs, abort=jnp.asarray(abort))
         got, prog = ops.prefill_attention_paged(
-            *(torch.from_numpy(a) for a in args),
-            abort=torch.from_numpy(abort))
+            *targs, abort=torch.from_numpy(abort))
     else:
         kt = kc.transpose(0, 2, 1, 3).copy()
         vt = vc.transpose(0, 2, 1, 3).copy()
-        args = (q, kt, vt, pos)
+        jargs, targs = _both_args(jnp, (q, kt, vt, pos), dtype)
         want, wprog = jops.prefill_attention(
-            *(jnp.asarray(a) for a in args), block_k=32,
-            abort=jnp.asarray(abort))
+            *jargs, block_k=32, abort=jnp.asarray(abort))
         got, prog = ops.prefill_attention(
-            *(torch.from_numpy(a) for a in args), block_k=32,
-            abort=torch.from_numpy(abort))
+            *targs, block_k=32, abort=torch.from_numpy(abort))
     assert prog.dtype == torch.int32
     np.testing.assert_array_equal(prog.numpy(), np.asarray(wprog))
     np.testing.assert_array_equal(prog.numpy(), np.minimum(abort, Sq))
     for b, cap in enumerate(np.minimum(abort, Sq)):
-        _close(got[b, :cap], np.asarray(want)[b, :cap])
+        _close(got[b, :cap], np.asarray(want)[b, :cap], dtype)
 
 
 def test_prefill_attention_reduces_to_decode(jx):
@@ -263,10 +274,10 @@ def test_prefill_attention_reduces_to_decode(jx):
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 def test_prefill_route(dtype, D):
-    """bf16 at head dim 64 or 128 takes the tensor-core body; f32, f16 and
-    bf16 at head dim 32 the CUDA-core body."""
+    """bf16 and f16 at head dim 64 or 128 take the tensor-core body; f32,
+    and bf16 and f16 at head dim 32, the CUDA-core body."""
     from repro_torch.kernels import prefill_attention as kp_
-    want = "wgmma" if dtype == "bfloat16" and D in (64, 128) else "simt"
+    want = "wgmma" if dtype != "float32" and D in (64, 128) else "simt"
     assert kp_.route(getattr(torch, dtype), D) == want
 
 
@@ -500,27 +511,45 @@ def test_launch_counts_cpu_path_counts_nothing():
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# On the card, f16 beside the reference's two: f16 inputs are rounded the
-# same on both sides, so the kernel and the plain version differ by f32
-# summation order and one output rounding (2^-11 of the value) each.
-CUDA_TOL = {**TOL, "float16": 2e-3}
-# Decode, per (row, KV head) over the rows that see >= 512 keys: relative L2
-# error against the plain version. CUDA_TOL is blind there, as a row over n
-# keys of N(0, 1) values has outputs of about sqrt(e / n), 0.037 at n 2000.
+# On the card, TOL: in f16 the kernel and the plain version differ by f32
+# summation order, one output rounding (2^-11 of the value) each, and on
+# the tensor-core route the kernel's rounding of P to f16 for P.V.
+# Decode and prefill, per (row, KV head) over the rows that see >= 512
+# keys: relative L2 error against the plain version. TOL is blind there,
+# as a row over n keys of N(0, 1) values has outputs of about sqrt(e / n),
+# 0.037 at n 2000.
 # A sound kernel misses by its output rounding; a 256-key split read twice
 # or dropped by ~sqrt(256 / n) (chip_smoke.py measures such a fault).
 LATE_REL_TOL = {"float32": 1e-4, "float16": 2e-3, "bfloat16": 2e-2}
-# Sq == 1 prefill against decode, elementwise (rtol, atol): two CUDA-core
-# bodies that sum in f32 in other orders. f32: the reference's 2e-6. f16:
-# each body rounds its f32 result once, so they agree to one output
-# rounding (at most 2^-10 of the value).
-SQ1_TOL = {"float32": (2e-6, 2e-6), "float16": (2 ** -10, 1e-4)}
-# bf16 prefill takes the tensor-core body, which rounds P to bf16 for P.V
-# while decode keeps P in f32: short rows' near-zero outputs miss one output
-# rounding elementwise (excess 2.2e-4 to 1.4e-3 on an H100, chip_smoke.py
-# phase 3), so the two are held per (row, KV head) by relative L2 (sound
-# 2.85e-3 to 4.22e-3 there, a planted 128-key tile fault 0.235 to 0.304).
-SQ1_REL_TOL = {"bfloat16": 2e-2}
+# Sq == 1 prefill against decode where prefill takes the CUDA-core body,
+# elementwise (rtol, atol): two CUDA-core bodies that sum in f32 in other
+# orders. f32: the reference's 2e-6. f16 and bf16 (head dim 32): each body
+# rounds its f32 result once, so they agree to one output rounding (at most
+# 2^-10 or 2^-7 of the value).
+SQ1_TOL = {"float32": (2e-6, 2e-6), "float16": (2 ** -10, 1e-4),
+           "bfloat16": (2 ** -7, 1e-4)}
+# bf16 and f16 prefill at head dims 64 and 128 take the tensor-core body,
+# which rounds P to the type for P.V while decode keeps P in f32: short
+# rows' near-zero outputs miss one output rounding elementwise (bf16: excess
+# 2.2e-4 to 1.4e-3 on an H100, chip_smoke.py phase 3), so the two are held
+# per (row, KV head) by relative L2 (bf16: sound 2.85e-3 to 4.22e-3 there,
+# a planted 128-key tile fault 0.235 to 0.304; f16's roundings are 8x
+# finer, 2^-11 against 2^-8).
+SQ1_REL_TOL = {"bfloat16": 2e-2, "float16": 2e-3}
+
+
+def _sq1_close(one, dec, route, dtype, Hkv):
+    """Sq == 1 prefill ``one`` [B, H, D] against decode ``dec``: elementwise
+    within SQ1_TOL on the CUDA-core route, per (row, KV head) by relative L2
+    within SQ1_REL_TOL on the tensor-core route."""
+    if route == "simt":
+        rtol, atol = SQ1_TOL[dtype]
+        torch.testing.assert_close(one, dec, rtol=rtol, atol=atol)
+        return
+    d = (one.float() - dec.float()).reshape(one.shape[0], Hkv, -1)
+    w = dec.float().reshape(one.shape[0], Hkv, -1)
+    rel = (d.norm(dim=2) / w.norm(dim=2)).max().item()
+    assert rel <= SQ1_REL_TOL[dtype], rel
 
 
 def _late_rows_close(got, want, pos, window, Hkv, dtype):
@@ -649,8 +678,8 @@ class TestCudaKernels:
             want = ref.ref_decode_attention(q, kc.transpose(1, 2),
                                             vc.transpose(1, 2), p)
             torch.testing.assert_close(got.float(), want.float(),
-                                       rtol=CUDA_TOL[dtype],
-                                       atol=CUDA_TOL[dtype])
+                                       rtol=TOL[dtype],
+                                       atol=TOL[dtype])
             if Smax > 512:
                 _late_rows_close(got, want, pos, Smax, Hkv, dtype)
             bshd = kd.decode_attention(q, kc.transpose(1, 2).contiguous(),
@@ -676,7 +705,7 @@ class TestCudaKernels:
         got = kd.decode_attention_paged(q, kp, vp, pt, p)
         want = ref.ref_decode_attention_paged(q, kp, vp, pt, p)
         torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=CUDA_TOL[dtype], atol=CUDA_TOL[dtype])
+                                   rtol=TOL[dtype], atol=TOL[dtype])
         _late_rows_close(got, want, pos, P * ps, Hkv, dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -716,7 +745,7 @@ class TestCudaKernels:
         for b in (1, 3, 6):
             assert torch.equal(run(slice(b, b + 1)), batch[b:b + 1]), b
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     def test_paged_and_abort(self, cuda, dtype):
         from repro_torch.kernels import decode_attention as kd
         from repro_torch.kernels import prefill_attention as kp_
@@ -747,14 +776,7 @@ class TestCudaKernels:
         one = kp_.prefill_attention_paged(q[:, :1], kp, vp, pt, pos)
         dec = kd.decode_attention_paged(q[:, 0].contiguous(), kp, vp, pt,
                                         pos)
-        if dtype in SQ1_TOL:
-            rtol, atol = SQ1_TOL[dtype]
-            torch.testing.assert_close(one[:, 0], dec, rtol=rtol, atol=atol)
-        else:
-            d = (one[:, 0].float() - dec.float()).reshape(B, Hkv, -1)
-            w = dec.float().reshape(B, Hkv, -1)
-            rel = (d.norm(dim=2) / w.norm(dim=2)).max().item()
-            assert rel <= SQ1_REL_TOL[dtype], rel
+        _sq1_close(one[:, 0], dec, kp_.route(dt, D), dtype, Hkv)
         wd = ref.ref_decode_attention_paged(q[:, 0], kp, vp, pt, pos)
         torch.testing.assert_close(dec.float(), wd.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
@@ -779,6 +801,7 @@ class TestCudaKernels:
         Hkv = 2
         fn = kp_.prefill_attention_paged if paged else kp_.prefill_attention
         way = kp_.route(dt, D)
+        assert way == ("simt" if dtype == "float32" or D == 32 else "wgmma")
         for window in ((1200, 48) if paged else (1000, 40)):
             for Sq in (1, 5, 65, 100, 256):
                 pos = [min(p, window) for p in (0, 100, 128, 700)] + \
@@ -791,8 +814,8 @@ class TestCudaKernels:
                 assert fn.routes == {**before, way: before[way] + 1}, Sq
                 want = _prefill_ref(paged, q, kv, p)
                 torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=CUDA_TOL[dtype],
-                                           atol=CUDA_TOL[dtype])
+                                           rtol=TOL[dtype],
+                                           atol=TOL[dtype])
                 if window >= 512:
                     rel = _prefill_late_rel(got, want, pos, window, Hkv)
                     assert rel.max().item() <= LATE_REL_TOL[dtype], (Sq, rel)
@@ -805,7 +828,10 @@ class TestCudaKernels:
         """Pages of 8 and 32 keys (a power of two: shift and mask) and of
         12 (division), against the plain version, at qwen3-1.7b heads, G 8
         at D 64 and G 1 at D 32, over a window of about 1270 keys (not a
-        multiple of either body's key tile) with a sentinel row."""
+        multiple of either body's key tile) with a sentinel row; bf16 and
+        f16 at D 64 and 128 on the tensor-core route, the rest on the
+        CUDA-core route."""
+        from repro_torch.kernels import prefill_attention as kp_
         g = torch.Generator(device=cuda).manual_seed(7)
         dt = getattr(torch, dtype)
         Sq = 100
@@ -814,16 +840,20 @@ class TestCudaKernels:
         q, kv = _prefill_case(g, cuda, dt, pos, Sq, H, Hkv, D, window,
                               True, ps=ps)
         p = torch.tensor(pos, device=cuda, dtype=torch.int32)
+        way = "simt" if dtype == "float32" or D == 32 else "wgmma"
+        before = dict(kp_.prefill_attention_paged.routes)
         got = _prefill(True, q, kv, p)
+        assert kp_.prefill_attention_paged.routes == {
+            **before, way: before[way] + 1}
         want = _prefill_ref(True, q, kv, p)
         torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=CUDA_TOL[dtype], atol=CUDA_TOL[dtype])
+                                   rtol=TOL[dtype], atol=TOL[dtype])
         rel = _prefill_late_rel(got, want, pos, window, Hkv)
         assert rel.max().item() <= LATE_REL_TOL[dtype], rel
 
     @pytest.mark.parametrize("dtype,D", [("float32", 128), ("float32", 64),
-                                         ("float16", 64), ("bfloat16", 32),
-                                         ("bfloat16", 64),
+                                         ("float16", 64), ("float16", 128),
+                                         ("bfloat16", 32), ("bfloat16", 64),
                                          ("bfloat16", 128)])
     @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
     def test_prefill_bits_invariant(self, cuda, paged, dtype, D):
@@ -862,6 +892,26 @@ class TestCudaKernels:
         for b in (1, 3, 6):
             assert torch.equal(_prefill(paged, q[b:b + 1], rows(b),
                                         p[b:b + 1]), whole[b:b + 1]), b
+
+    @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+    @pytest.mark.parametrize("D", [32, 128])
+    def test_sq1_prefill_is_decode(self, cuda, D, dtype):
+        """Sq == 1 dense prefill against dense decode at rows of 1 to 1500
+        keys, G 4: elementwise where prefill takes the CUDA-core body, per
+        (row, KV head) by relative L2 on the tensor-core body
+        (``_sq1_close``)."""
+        from repro_torch.kernels import decode_attention as kd
+        from repro_torch.kernels import prefill_attention as kp_
+        g = torch.Generator(device=cuda).manual_seed(8)
+        dt = getattr(torch, dtype)
+        H, Hkv, Smax = 8, 2, 1500
+        pos = [0, 5, 127, 128, 700, Smax - 1]
+        q, kv = _prefill_case(g, cuda, dt, pos, 1, H, Hkv, D, Smax, False)
+        p = torch.tensor(pos, device=cuda, dtype=torch.int32)
+        one = kp_.prefill_attention(q, *kv, p)
+        dec = kd.decode_attention(q[:, 0].contiguous(), *kv, p,
+                                  kv_layout="bhsd")
+        _sq1_close(one[:, 0], dec, kp_.route(dt, D), dtype, Hkv)
 
     def test_dense_prefill_counts_launches(self, cuda):
         from repro_torch.kernels import prefill_attention as kp_
