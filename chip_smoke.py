@@ -265,8 +265,8 @@ non-zero:
              (``restore(shardings=...)``): every leaf's ``full_tensor()``
              bit-equal; (c) ``python -m repro_torch.launch.dryrun`` at full
              width, the pinned cells (``PIN_CELLS``: qwen3-1.7b,
-             rwkv6-7b and whisper-small ``train_4k`` on the fake 16x16
-             mesh, deepseek-v2-236b and llama-3.2-vision-90b
+             rwkv6-7b, whisper-small and zamba2-1.2b ``train_4k`` on the
+             fake 16x16 mesh, deepseek-v2-236b and llama-3.2-vision-90b
              ``decode_32k`` on the fake 2x16x16 mesh) and the smoke cells,
              each in a subprocess on the host (a fake group cannot share a
              process with NCCL), started with phase 14 and read last: each
@@ -4518,8 +4518,8 @@ def sharding_phase(torch, seed, smi):
     within SHARD_STEP_TOL (see there); (b) the unsharded trainer's params, checkpointed,
     restored onto the mesh (``restore(shardings=...)``): every leaf's
     ``full_tensor()`` bit-equal; (c) the dry run at full width, each of
-    the four pinned cells in its own subprocess on the host, and the
-    sixteen smoke cells in another, started with phase DRYRUN_START (or
+    the six pinned cells in its own subprocess on the host, and the
+    eighteen smoke cells in another, started with phase DRYRUN_START (or
     first) and read last: each records ``ok``,
     each cell's trace matches the pins (``_against_pins``), and each
     full-width cell gives the reference's fits-in-80-GB verdict."""

@@ -21,7 +21,7 @@ Every placement inside a model block is stated
 (``repro_torch.dist.sharding``), so the trace is a function of the tree,
 not of the installed torch's sharding rules: ``tests/torch_dryrun_pins.json``
 pins the smoke cells (``SMOKE_CELLS``, each on both ``SMOKE_MESHES``) and
-five full-width cells (``PIN_CELLS``), and ``chip_smoke.py`` phase 16c
+six full-width cells (``PIN_CELLS``), and ``chip_smoke.py`` phase 16c
 holds the GPU machine's torch to it. A record names the torch that traced
 it. ``--grid`` traces the reference's whole applicable grid, one
 subprocess a run, several at once, into one file
@@ -63,13 +63,14 @@ SMOKE_CELLS = (("qwen3-1.7b", _TRAIN),
                ("whisper-small", _TRAIN), ("whisper-small", _DECODE),
                ("llama-3.2-vision-90b", _TRAIN),
                ("llama-3.2-vision-90b", _DECODE),
-               ("rwkv6-7b", _TRAIN))
+               ("rwkv6-7b", _TRAIN), ("zamba2-1.2b", _TRAIN))
 # the full-width cells pinned beside them (arch, shape, mesh)
 PIN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
              ("deepseek-v2-236b", "decode_32k", "multi"),
              ("llama-3.2-vision-90b", "decode_32k", "multi"),
              ("rwkv6-7b", "train_4k", "single"),
-             ("whisper-small", "train_4k", "single"))
+             ("whisper-small", "train_4k", "single"),
+             ("zamba2-1.2b", "train_4k", "single"))
 
 
 # a cell fits one H100 when its per-device argument and temp bytes

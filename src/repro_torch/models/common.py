@@ -99,12 +99,18 @@ def _whole(gamma):
     return reshard(gamma, ()) if hasattr(gamma, "placements") else gamma
 
 
+def wide(x):
+    """``x`` in the precision a norm computes in: f32, or f64 for f64
+    ``x``."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x, gamma, eps: float = 1e-6):
     gamma = _whole(gamma)
-    xf = x.float()
+    xf = wide(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + gamma.float())).to(x.dtype)
+    return (out * (1.0 + gamma.to(xf.dtype))).to(x.dtype)
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):

@@ -33,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, rms_norm, sq_relu
+from .common import dense_init, rms_norm, sq_relu, wide
 from ..dist.sharding import batch_axes, current_mesh, local_call
 
 _F32 = torch.float32
@@ -351,11 +351,24 @@ def _causal_conv(x, w, conv_state=None):
 def mamba2_block(p, x, cfg, state=None, conv_state=None):
     """x: [B,T,D]; state: [B,H,N,P]. Returns (y, new_state,
     new_conv_state)."""
+    g, new_state, new_conv = mamba2_heads(p, x, cfg, state, conv_state)
+    y = rms_norm(g, p["out_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], new_state, new_conv
+
+
+def mamba2_heads(p, x, cfg, state=None, conv_state=None):
+    """:func:`mamba2_block` up to its gated norm: (the gated heads
+    ``y * silu(z)`` [B,T,h*P], new_state [B,h,N,P], new_conv_state
+    [B,W-1,h*P+2N]). The heads are those the weights hold, h of
+    ``a_log``'s length: ``in_proj``'s columns are z, x (h*P each), B, C
+    (N each) and dt (h), ``conv``'s channels x's, then B's and C's. In a
+    mesh, a rank's z, x and dt columns and x channels for its heads, and
+    B and C whole; with every head, the weights as they are."""
     B, T, D = x.shape
     s = cfg.ssm
-    d_in = s.expand * D
     P = s.head_dim
-    H = d_in // P
+    H = p["a_log"].shape[-1]
+    d_in = H * P
     N = s.state_dim
     zxbcdt = x @ p["in_proj"]
     z, xs, Bc, Cc, dt = torch.split(zxbcdt, [d_in, d_in, N, N, H], dim=-1)
@@ -375,5 +388,16 @@ def mamba2_block(p, x, cfg, state=None, conv_state=None):
     y = y + p["d_skip"][None, None, :, None].to(y.dtype) \
         * xs.reshape(B, T, H, P)
     y = y.reshape(B, T, d_in)
-    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], new_state, new_conv
+    return y * F.silu(z), new_state, new_conv
+
+
+def gated_norm_out(g, sq_sum, gamma, w_out, d_in, eps):
+    """:func:`mamba2_block`'s gated norm and output product on a rank's
+    heads: ``g`` [B,T,h*P] (:func:`mamba2_heads`) normed by ``sq_sum``
+    [B,T,1], the sum of squares over all ``d_in`` channels (every rank's
+    heads) in the precision :func:`~.common.rms_norm` computes in
+    (:func:`~.common.wide`), scaled by its rows of ``gamma`` and
+    multiplied by its row block of ``out_proj``: one part of the output,
+    whose parts over the heads sum to the whole."""
+    out = wide(g) * torch.rsqrt(sq_sum / d_in + eps)
+    return (out * (1.0 + gamma.to(out.dtype))).to(g.dtype) @ w_out

@@ -50,11 +50,11 @@ from . import attention as attn
 from . import mlp as mlpm
 from . import moe as moem
 from . import ssm as ssmm
-from .common import dt, embed_init, dense_init, rms_norm, softcap
+from .common import dt, embed_init, dense_init, rms_norm, softcap, wide
 from ..configs.base import ModelConfig
 from ..dist.sharding import (Reduced, axes_of, current_mesh, hint,
-                             local_call, reshard, spec_of, take_rows)
-from ..train.tree import leaves, unflatten
+                             local_call, mesh_gather, reshard, spec_of,
+                             take_rows)
 
 # a layer kind ending with this also fires the hybrid's shared block
 SHARED_SUFFIX = "_shared"
@@ -312,36 +312,6 @@ def _store(cache, new):
             cache[name].copy_(t)
 
 
-def _on_local(fn, p, x, cache):
-    """``fn(p, x, cache)`` for a layer with no sharding rule of its own
-    (mamba2): in a mesh, on each rank's rows of ``x`` (a cache's rows in
-    a decode step) with every weight gathered whole (no head split: the
-    scan runs every head on every rank), a cache's leaves gathered whole
-    but for their rows for the step and written back in their own
-    placement; else ``fn(p, x, cache)``."""
-    if current_mesh() is None:
-        return fn(p, x, cache)
-    x0s = spec_of(x)
-    names = list(cache or {})
-    if names:
-        x = reshard(x, spec_of(cache[names[0]])[:1] + x0s[1:])
-    xs = spec_of(x)
-    cs = [xs[:1] + (None,) * (cache[n].dim() - 1) for n in names]
-    w = leaves(p)
-
-    def run(x, *a):
-        c = dict(zip(names, a[:len(names)])) or None
-        y = fn(unflatten(p, a[len(names):]), x, c)
-        return (y, *(c[n] for n in names))     # the state, written by fn
-
-    y, *new = local_call(run, x, *(cache[n] for n in names), *w,
-                         in_specs=[xs] + cs + [()] * len(w),
-                         out_specs=[xs] + cs)
-    _store(cache, {n: reshard(t, spec_of(cache[n]))
-                   for n, t in zip(names, new)})
-    return reshard(y, x0s)
-
-
 def _rwkv_layer(p, x, cfg, cache=None):
     """The rwkv6 layer (time mix, channel mix, their norms and residuals;
     a cache's state and token shifts advanced in place). In a mesh, where
@@ -403,7 +373,85 @@ def _rwkv_layer(p, x, cfg, cache=None):
 
 
 def _mamba_layer(p, x, cfg, cache=None):
-    return _on_local(lambda p, x, c: _mamba(p, x, cfg, c), p, x, cache)
+    """The mamba2 layer (its norm, block and residual; a cache's state and
+    conv window advanced in place). In a mesh, where XLA's compiled
+    program places the reference's: each rank on its rows of ``x`` (a
+    cache's rows in a decode step), its heads split over "model" (where
+    they divide). ``in_proj`` and ``conv`` are gathered whole (their
+    contiguous split does not line up with z, x, B, C and dt) and each
+    rank takes its heads' z, x and dt columns and x channels, and B and C
+    whole; the conv, the scan, ``d_skip`` and the gate run on its heads;
+    the gated norm divides by the mean of squares over all of d_in, its
+    per-rank sums summed over "model" (an f32 [B,T,1] all-reduce); the
+    output product, on ``out_proj``'s row block as placed, sums its
+    partial products. A cache's state steps where the heads are and goes
+    back to its own placement; its conv window is gathered whole for the
+    step, each rank's x channels gathered back after it. Heads that
+    "model" does not divide run whole on every rank. Without a mesh,
+    :func:`repro_torch.models.ssm.mamba2_block` as it stands."""
+    if current_mesh() is None:
+        return _mamba(p, x, cfg, cache)
+    mp = p["mamba"]
+    s = cfg.ssm
+    P, N = s.head_dim, s.state_dim
+    d_in = s.expand * cfg.d_model
+    H = d_in // P
+    mesh = current_mesh()
+    n = mesh.shape.get("model", 1)
+    m = "model" if n > 1 and H % n == 0 else None
+    # this rank's heads [r * h, (r + 1) * h), their d_in channels
+    n, r = (n, mesh.device_mesh.get_local_rank("model")) if m else (1, 0)
+    h, dh = H // n, d_in // n
+    x0s = spec_of(x)
+    if cache is not None:
+        x = reshard(x, spec_of(cache["state"])[:1] + x0s[1:])
+    xs = spec_of(x)
+    heads, state = xs[:-1] + (m,), xs[:1] + (m, None, None)
+    window = xs[:1] + (None, None)
+    c = cache or {}
+
+    def mine(t, dim, at):
+        """``t``'s slices (start, width, whether a head's) along ``dim``,
+        each head's from this rank's heads on, joined"""
+        return torch.cat([t.narrow(dim, a + r * w if per_head else a, w)
+                          for a, w, per_head in at], dim=dim)
+
+    # in_proj's z, x and dt columns of these heads, B's and C's whole;
+    # conv's (and the window's) x channels, B's and C's
+    cols = ((0, dh, True), (d_in, dh, True), (2 * d_in, 2 * N, False),
+            (2 * (d_in + N), h, True))
+    chans = ((0, dh, True), (d_in, 2 * N, False))
+
+    def block(x, st, cv, w_in, conv, a_log, dt_bias, d_skip):
+        q = {"in_proj": mine(w_in, 1, cols), "conv": mine(conv, 1, chans),
+             "a_log": a_log, "dt_bias": dt_bias, "d_skip": d_skip}
+        if cv is not None:
+            cv = mine(cv, 2, chans)
+        g, new_st, new_cv = ssmm.mamba2_heads(q, x, cfg, st, cv)
+        sq = wide(g).square().sum(dim=-1, keepdim=True)
+        if cv is None:
+            return g, sq
+        # the window's x channels of every rank, then B's and C's
+        return g, sq, new_st, torch.cat(
+            [mesh_gather(new_cv[..., :dh], 2, m), new_cv[..., dh:]], dim=2)
+
+    hn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    g, sq, *new = local_call(
+        block, hn, c.get("state"), c.get("conv"), mp["in_proj"], mp["conv"],
+        mp["a_log"], mp["dt_bias"], mp["d_skip"],
+        in_specs=[xs, state, window, (), (), (m,), (m,), (m,)],
+        out_specs=[heads, Reduced(xs, axes_of(m)) if m else xs, state,
+                   window])
+    y = local_call(
+        lambda g, sq, gamma, w: ssmm.gated_norm_out(g, sq, gamma, w, d_in,
+                                                    cfg.norm_eps),
+        g, sq, mp["out_norm"], mp["out_proj"],
+        in_specs=[heads, xs, (m,), (m, None)],
+        out_specs=[Reduced(xs, axes_of(m)) if m else xs])
+    if cache is not None:
+        _store(cache, {k: reshard(t, spec_of(cache[k]))
+                       for k, t in zip(("state", "conv"), new)})
+    return reshard(x + y, x0s)
 
 
 def _mamba(p, x, cfg, cache):

@@ -41,7 +41,8 @@ PIN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
              ("deepseek-v2-236b", "decode_32k", "multi"),
              ("llama-3.2-vision-90b", "decode_32k", "multi"),
              ("rwkv6-7b", "train_4k", "single"),
-             ("whisper-small", "train_4k", "single"))
+             ("whisper-small", "train_4k", "single"),
+             ("zamba2-1.2b", "train_4k", "single"))
 
 
 def temp_buffers(dump: str) -> dict:

@@ -13,11 +13,17 @@ the reference's rule places it). The decode step also runs on a
 and its cache is split on the sequence instead. whisper's frames and
 encoder output and the VLM's image features are seeded noise on the
 tokens' rows; the VLM's cross gates are opened to 0.5 (zeros at init
-hide its cross layers). Those two run in f64: their smoke stacks
-amplify rounding (one device's own f32 step sits 1.5e-3 (logits) and
-1.4e-2 (gradients) from its f64 step on the VLM, 1.7e-4 and 6.1e-4 on
-whisper, relative to each tensor's largest value), so in f32 the ranks'
-other summation order alone would move them past ``TOL``.
+hide its cross layers). Those two and zamba2 run in f64: their smoke
+stacks amplify rounding (one device's own f32 step sits 1.5e-3 (logits)
+and 1.4e-2 (gradients) from its f64 step on the VLM, 1.7e-4 and 6.1e-4
+on whisper, relative to each tensor's largest value; on zamba2 one
+device's f32 forward moves its logits by 7.0e-5 when each mamba layer's
+output product is summed as two partial products, as the head split
+sums them over "model", and by 5.1e-5 from a 1e-7 relative change of
+the first mamba layer's output, most of it through the shared attention
+block), so in f32 the ranks' other summation order alone would move
+them past ``TOL``. ``tests/test_torch_mamba_heads.py`` holds one mamba
+layer under the head split in f32.
 """
 import pickle
 import sys
@@ -32,7 +38,7 @@ ARCHS = {"qwen3-1.7b": True, "deepseek-v2-236b": True,
 # a case "<arch>/v<n>" is the arch's smoke config with a vocabulary of n,
 # which "model" does not divide: the loss takes the whole-vocabulary NLL on
 # each rank's rows
-F64 = ("whisper-small", "llama-3.2-vision-90b")
+F64 = ("whisper-small", "llama-3.2-vision-90b", "zamba2-1.2b")
 
 
 def _whole(t):

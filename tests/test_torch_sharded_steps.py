@@ -12,7 +12,10 @@ latent split), on that mesh (qwen3's cache split on its KV
 heads) and on (data=1, model=4) (split on the sequence). whisper and the
 VLM run their cross-attention (and whisper its encoder) on stated
 placements, rwkv6 its head-parallel layer, its cache's state split on
-the heads, zamba2's mamba layers their cache gathered for the step. whisper also
+the heads, zamba2's mamba layers theirs (each rank's scan on its heads,
+its cache's state stepped on them, the conv window gathered for the
+step; in f64, as whisper and the VLM, ``tests/_torch_dist_steps.py``
+says why). whisper also
 runs with a vocabulary of 513 ("whisper-small/v513"), which "model" does
 not divide, so each rank's rows take the whole-vocabulary NLL
 (``transformer.py::_BlockedNll``). All four ranks return the same whole
