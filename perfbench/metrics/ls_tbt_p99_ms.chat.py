@@ -1,0 +1,6 @@
+"""``ls_tbt_p99_ms`` in the chat cell, held to no bound there: its runs
+spread 12-21% within a set, more than a bound of at most 0.25 holds, and
+the card is idle over half of its window (``PERF.md`` §2)."""
+from perfbench.catalog import load_reader
+
+read = load_reader("ls_tbt_p99_ms")

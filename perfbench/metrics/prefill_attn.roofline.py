@@ -1,0 +1,9 @@
+"""LS launches of ``prefill_attention_paged``: their summed least time
+(``roofline.prefill_attn_work`` of each call's served rows, one launch a
+layer) over their summed device time in the profiled sub-window.
+Percent."""
+from perfbench.layers import attn_roofline
+
+
+def read(run):
+    return attn_roofline(run, "prefill")
